@@ -1,0 +1,59 @@
+"""Kernel K1 on the card against its plain twin (needs a CUDA device).
+
+Marked `cuda`; skips on a host without a card. On a machine with one, and
+without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
+
+    TPU_DEER_TEST_TPU=1 python -m pytest tests/test_torch_kernels_cuda.py -q
+
+Tolerances as between the reference's own front-end paths (float32 sums in
+another order); ZCR counts sign changes and must be equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_deer_torch.kernels.mfcc_signal import mfcc_signal, mfcc_signal_plain
+from tpu_deer_torch.ops import audio_frontend as taf
+
+pytestmark = pytest.mark.cuda
+
+TOL = ((2e-3, 5e-3), (2e-4, 1e-3), (2e-4, 1e-3), (1e-4, 1e-5))
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("b,n", [(1, 32000), (3, 48017)])
+def test_kernel_matches_plain(device, b, n):
+    rng = np.random.default_rng(b)
+    t = np.arange(n) / 16000.0
+    sig = np.stack([0.3 * np.sin(2 * np.pi * (100 + 50 * i) * t)
+                    + 0.02 * rng.normal(size=n) for i in range(b)])
+    cfg = taf.AudioFrontendConfig()
+    x_pad, _ = taf._pad_for_frames(
+        torch.from_numpy(sig.astype(np.float32)).to(device), cfg)
+    bases = taf._device_bases(cfg, device)
+    before = mfcc_signal.launches
+    got = mfcc_signal(x_pad, bases, cfg.n_fft, cfg.hop_length)
+    torch.cuda.synchronize()
+    assert mfcc_signal.launches == before + 1
+    ref = mfcc_signal_plain(x_pad, bases, cfg.n_fft, cfg.hop_length)
+    for g, r, (rtol, atol) in zip(got, ref, TOL):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+    assert torch.equal(got[3][..., 1], ref[3][..., 1])
+
+
+def test_features_default_to_kernel_on_cuda(device):
+    sig = torch.randn(2, 20000, device=device)
+    before = mfcc_signal.launches
+    feats = taf.extract_utterance_features_batch(sig)
+    assert mfcc_signal.launches == before + 1
+    plain = taf.extract_utterance_features_batch(sig, plain=True)
+    torch.testing.assert_close(feats, plain, rtol=1e-4, atol=1e-5)

@@ -1,0 +1,22 @@
+"""tpu_deer_torch — the PyTorch/CUDA port of tpu_deer for NVIDIA Hopper.
+
+The JAX package `tpu_deer` is the reference; this package computes the same
+functions with PyTorch, and every Pallas kernel of the reference becomes a
+kernel written by hand for Hopper (`tpu_deer_torch.kernels`). Module names
+follow the reference so each piece has an obvious counterpart:
+
+  tpu_deer.ops.dsp             → tpu_deer_torch.ops.dsp (own numpy copy)
+  tpu_deer.ops.audio_frontend  → tpu_deer_torch.ops.audio_frontend
+                                 + tpu_deer_torch.kernels.mfcc_signal (K1)
+  tpu_deer.data.features       → tpu_deer_torch.data.features
+  tpu_deer.core.nig            → tpu_deer_torch.core.nig
+  tpu_deer.models.*            → tpu_deer_torch.models.*
+  tpu_deer.serve               → tpu_deer_torch.serve
+  (flax params ↔ state_dict)   → tpu_deer_torch.convert
+
+Nothing here imports `jax`, `flax` or `tpu_deer`. Entry points run on CUDA
+unless the caller passes `device="cpu"`; without a card and without that
+request they raise (`tpu_deer_torch.device.resolve_device`).
+"""
+
+__version__ = "0.1.0"

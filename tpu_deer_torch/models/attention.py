@@ -1,0 +1,148 @@
+"""Attention modules: MHA, per-modality uncertainty, uncertainty-aware attention.
+
+Port of `tpu_deer/models/attention.py` (MultiHeadAttention, the plain
+scaled-dot-product branch; UncertaintyEstimator; UncertaintyAwareAttention).
+The flagship model attends over sequences of length 1, so its attention is
+a handful of dense matmuls; the flash-attention kernel (K3) is for long
+sequences and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from tpu_deer_torch.models.layers import MLP
+
+# Key lengths at which use_flash="auto" picks the flash kernel, taken from
+# the reference's interface (tpu_deer/ops/flash_attention.py) so that both
+# packages dispatch alike. They have not been measured on the H100; that
+# comes with the port of K3.
+FLASH_AUTO_INFER_T = 2048
+FLASH_AUTO_TRAIN_T = 1024
+
+
+def resolve_use_flash(use_flash: Union[bool, str], t_k: int,
+                      training: bool = False) -> bool:
+    """Resolve a bool | "auto" flag to a concrete choice. Flash attention
+    (K3) is not ported yet, so a flag that resolves to True raises."""
+    if use_flash == "auto":
+        chosen = t_k >= (FLASH_AUTO_TRAIN_T if training else FLASH_AUTO_INFER_T)
+    else:
+        chosen = bool(use_flash)
+    if chosen:
+        raise NotImplementedError(
+            f"flash attention (kernel K3) is not ported yet (t_k={t_k})"
+        )
+    return False
+
+
+class MultiHeadAttention(nn.Module):
+    """Scaled-dot-product multi-head attention over [B, T, D], optional mask
+    (True = attend)."""
+
+    def __init__(self, feature_dim: int, num_heads: int = 8,
+                 dropout: float = 0.1, use_flash: Union[bool, str] = "auto"):
+        super().__init__()
+        if feature_dim % num_heads != 0:
+            raise ValueError(f"feature_dim {feature_dim} is not divisible by "
+                             f"num_heads {num_heads}")
+        self.feature_dim = feature_dim
+        self.num_heads = num_heads
+        self.use_flash = use_flash
+        self.q_proj = nn.Linear(feature_dim, feature_dim)
+        self.k_proj = nn.Linear(feature_dim, feature_dim)
+        self.v_proj = nn.Linear(feature_dim, feature_dim)
+        self.out_proj = nn.Linear(feature_dim, feature_dim)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, query, key, value,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        head_dim = self.feature_dim // self.num_heads
+        b, tq, _ = query.shape
+        tk = key.shape[1]
+        resolve_use_flash(self.use_flash, tk, training=self.training)
+
+        def split_heads(x, t):
+            return x.reshape(b, t, self.num_heads, head_dim).transpose(1, 2)
+
+        q = split_heads(self.q_proj(query), tq)
+        k = split_heads(self.k_proj(key), tk)
+        v = split_heads(self.v_proj(value), tk)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+        attn = self.dropout(torch.softmax(scores, dim=-1))
+        out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+        out = out.transpose(1, 2).reshape(b, tq, self.feature_dim)
+        return self.out_proj(out)
+
+
+class UncertaintyEstimator(nn.Module):
+    """Per-modality scalar uncertainty in [0, 1]: Linear → ReLU → Dropout →
+    Linear → ReLU → Linear → sigmoid."""
+
+    def __init__(self, feature_dim: int, dropout: float = 0.2):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            nn.Linear(feature_dim, feature_dim // 2),
+            nn.Linear(feature_dim // 2, feature_dim // 4),
+            nn.Linear(feature_dim // 4, 1),
+        ])
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dropout(torch.relu(self.layers[0](x)))
+        h = torch.relu(self.layers[1](h))
+        return torch.sigmoid(self.layers[2](h))
+
+
+class UncertaintyAwareAttention(nn.Module):
+    """Uncertainty-aware cross-modal attention.
+
+    Per modality m with features f_m [B, D]:
+      u_m     = UncertaintyEstimator(f_m)   (one estimator for all three)
+      self_m  = SelfAttn(f_m)               (one self-attention for all three)
+      cross_m = CrossAttn(text → f_m)       (text is the query; t_cross is
+                                             cross(t, t, t))
+      w       = softmax(WeightNet(cat[self_a, self_v, self_t, u_a, u_v, u_t]))
+      out_m   = w_m * self_m + (1 - u_m) * cross_m
+    """
+
+    def __init__(self, feature_dim: int, num_heads: int = 8,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.self_attention = MultiHeadAttention(feature_dim, num_heads, dropout)
+        self.cross_attention = MultiHeadAttention(feature_dim, num_heads, dropout)
+        self.uncertainty_estimator = UncertaintyEstimator(feature_dim)
+        self.weight_network = MLP(3 * feature_dim + 3, [feature_dim, 3],
+                                  dropout=dropout, final_activation="softmax")
+
+    def forward(self, audio, video, text) -> dict[str, torch.Tensor]:
+        a1, v1, t1 = (x[:, None, :] for x in (audio, video, text))
+        unc = self.uncertainty_estimator
+        u_a, u_v, u_t = unc(audio), unc(video), unc(text)
+
+        sa = self.self_attention
+        a_self = sa(a1, a1, a1)[:, 0]
+        v_self = sa(v1, v1, v1)[:, 0]
+        t_self = sa(t1, t1, t1)[:, 0]
+
+        ca = self.cross_attention
+        a_cross = ca(t1, a1, a1)[:, 0]
+        v_cross = ca(t1, v1, v1)[:, 0]
+        t_cross = ca(t1, t1, t1)[:, 0]
+
+        weights = self.weight_network(
+            torch.cat([a_self, v_self, t_self, u_a, u_v, u_t], dim=1)
+        )
+        return {
+            "audio": weights[:, 0:1] * a_self + (1.0 - u_a) * a_cross,
+            "video": weights[:, 1:2] * v_self + (1.0 - u_v) * v_cross,
+            "text": weights[:, 2:3] * t_self + (1.0 - u_t) * t_cross,
+            "attention_weights": weights,
+            "modality_uncertainties": torch.cat([u_a, u_v, u_t], dim=1),
+        }
