@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and streaming paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
-(into build/kernels), then:
+(into build/kernels, one nvcc per source, all started together), then:
 
-  1. card  — prints the card's name and power limit and the build time;
-  2. K1    — the fused MFCC kernel against its plain PyTorch twin on the
-             card at B ∈ {1, 64} × the four length buckets plus one odd length,
-             and its time beside the plain twin's and its bound;
-  3. slice — the flagship model (3,918,324 params, seeded init) behind
-             MultimodalFeatureExtractor → InferenceEngine.predict on 300
-             synthetic utterances (0.5-12 s, all four length buckets) with
-             video frames and texts, at request sizes 1, 8, 64, 256 and 300;
-             checks the outputs, the kernel launches, and that features and
-             predictions from the kernel match those from the plain twin.
+  1. card   — prints the card's name and power limit and the build time;
+  2. K1     — the fused MFCC-from-signal kernel against its plain PyTorch
+              twin on the card at B ∈ {1, 64} × the four length buckets plus
+              one odd length, and its time beside the plain twin's and its
+              bound;
+  3. slice  — the flagship model (3,918,324 params, seeded init) behind
+              MultimodalFeatureExtractor → InferenceEngine.predict on 300
+              synthetic utterances (0.5-12 s, all four length buckets) with
+              video frames and texts, at request sizes 1, 8, 64, 256 and 300;
+              checks the outputs, the kernel launches, and that features and
+              predictions from the kernel match those from the plain twin;
+  4. K2     — the fused MFCC-from-frames kernel against its plain twin at
+              R ∈ {16, 4096, 597} rows of n_fft 1024 and 597 rows of n_fft
+              512, and its time at the tick's 4096 rows beside its bound;
+  5. stream — a StreamingRecognizer over the flagship at 256 streams, chunk
+              4096, with an OOD detector: 8 ticks (one with inactive slots,
+              one after a reset), one K2 launch per tick, kernel path vs
+              plain twin, and a slot's streamed features vs the offline
+              extractor (K1) on the same audio;
+  6. server — serve() on 127.0.0.1 with 64 stream slots and an OOD
+              detector: 16 clients × 4 /stream/push plus /predict requests,
+              responses held against a direct StreamingRecognizer run and a
+              direct predict; then tick and push latency and a profile.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -24,18 +37,27 @@ exits non-zero and prints no result. Without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 SEED = 0
 SR = 16000
 N_UTTERANCES = 300
+KERNELS = ("mfcc_signal", "mfcc_frames")  # csrc/<name>.cu
+STREAMS = 256  # concurrent streams per tick (the shape of bench.py:281-283)
+TICKS = 8
+SERVER_SLOTS, CLIENTS, PUSHES = 64, 16, 4
+DEVICE = "cuda"  # the stream phases' device (a CPU rehearsal sets "cpu")
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # (rtol, atol) for mfcc, logmel, power, timefeats: float32 sums of 1024
@@ -309,6 +331,338 @@ def phase_slice(torch, k1):
     return launches
 
 
+def k2_work(cfg, rows, mel_nnz):
+    """(FLOPs, bytes) that K2's function needs at the least, on `rows`
+    frames: as k1_work, without RMS and ZCR, and with the frames (not a
+    signal) read once."""
+    bins, mels, ceps, fft = cfg.n_bins, cfg.n_mels, cfg.n_mfcc, cfg.n_fft
+    per_frame = (fft                            # window
+                 + 2.5 * fft * math.log2(fft)   # real FFT
+                 + 3 * bins                     # power
+                 + 2 * mel_nnz                  # mel
+                 + mels                         # log
+                 + 2 * mels * ceps)             # DCT
+    bases = fft + bins * mels + mels * ceps
+    outputs = rows * (ceps + mels + bins)
+    return rows * per_frame, 4 * (rows * fft + bases + outputs)
+
+
+def voiced_frames(torch, taf, rng, cfg, rows):
+    """[rows, n_fft] contiguous frames of voice() audio on the card."""
+    sig = voice(rng, rows * cfg.hop_length, rng.uniform(90, 300))
+    frames = taf.frame_signal(torch.from_numpy(sig).to(DEVICE), cfg)
+    return frames[:rows].contiguous()
+
+
+def phase_k2(torch, taf, k2):
+    """K2 against its plain twin on the card; returns the kernels record."""
+    rng = np.random.default_rng(SEED + 2)
+    main_rows = STREAMS * (4096 // 256)  # the tick's rows: 256 streams × 16
+    max_err, timed = 0.0, None
+    for n_fft, rows in ((1024, 16), (1024, main_rows), (1024, 37 * 16 + 5),
+                        (512, 37 * 16 + 5)):
+        cfg = taf.AudioFrontendConfig(n_fft=n_fft)
+        bases = taf._device_bases(cfg, torch.device(DEVICE))
+        frames = voiced_frames(torch, taf, rng, cfg, rows)
+        before = k2.mfcc_frames.launches
+        got = k2.mfcc_frames(frames, bases, n_fft)
+        torch.cuda.synchronize()
+        if k2.mfcc_frames.launches != before + 1:
+            raise AssertionError("mfcc_frames did not count its launch")
+        ref = k2.mfcc_frames_plain(frames, bases, n_fft)
+        errs = []
+        for name, g, r, (rtol, atol) in zip(
+                ("mfcc", "logmel", "power"), got, ref, K1_TOL):
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"K2 {name}: shape {tuple(g.shape)} or "
+                                     f"non-finite values")
+            errs.append(check_close(f"K2 {name} R={rows} n_fft={n_fft}",
+                                    g, r, rtol, atol))
+        max_err = max(max_err, *errs)
+        print(f"K2 vs plain R={rows} n_fft={n_fft}: max abs err mfcc "
+              f"{errs[0]:.3e} logmel {errs[1]:.3e} power {errs[2]:.3e}")
+        if (n_fft, rows) == (1024, main_rows):
+            timed = (frames, bases, cfg)
+
+    frames, bases, cfg = timed
+    run = lambda fn: (lambda: fn(frames, bases, cfg.n_fft))
+    kernel_ms = time_ms(run(k2.mfcc_frames))
+    plain_ms = time_ms(run(k2.mfcc_frames_plain))
+    mel_nnz = int(torch.count_nonzero(bases["mel"]))
+    flops, nbytes = k2_work(cfg, main_rows, mel_nnz)
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    dense = main_rows * 4 * cfg.n_fft * cfg.n_bins
+    print(f"K2 at R={main_rows} (one tick of {STREAMS} streams), n_fft "
+          f"{cfg.n_fft}: kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.4f} "
+          f"ms; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.4f} GFLOP "
+          f"f32 at FFT cost -> {t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> "
+          f"{t_bytes:.4f} ms)")
+    print(f"informational, not the bound: K2's dense DFT alone is "
+          f"{dense / 1e9:.2f} GFLOP -> {dense / F32_FLOPS * 1e3:.4f} ms at the "
+          f"f32 rate")
+    return {
+        "name": "mfcc_frames",
+        "route": "cuda",
+        "source": "tpu_deer_torch/kernels/csrc/mfcc_frames.cu",
+        "replaces": "tpu_deer/ops/audio_frontend.py:135",  # _mfcc_kernel
+        "launches": None,  # filled from the stream phase's run
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def context(rng, n):
+    """(video [n, 256], text [n, 768]) context features, as the extractors
+    make them from frames and transcripts."""
+    from tpu_deer_torch.data.features import (
+        TextFeatureExtractor,
+        VideoFeatureExtractor,
+    )
+
+    video = np.stack([VideoFeatureExtractor().extract_from_frames(
+        rng.uniform(size=(8, 64, 64)).astype(np.float32)) for _ in range(n)])
+    text = TextFeatureExtractor().extract_batch(
+        [" ".join(rng.choice(WORDS, size=rng.integers(3, 12)))
+         for _ in range(n)])
+    return video, text
+
+
+def check_outputs(out, rows, label):
+    """Every push output finite with the recognizer's shapes."""
+    shapes = {"features": (rows, 84), "mu": (rows, 3), "uncertainty": (rows, 3),
+              "calibrated_uncertainty": (rows, 3),
+              "expected_abs_error": (rows, 3), "ood_score": (rows,)}
+    if set(out) != set(shapes):
+        raise AssertionError(f"{label}: keys {sorted(out)}")
+    for key, shape in shapes.items():
+        if out[key].shape != shape or not np.isfinite(out[key]).all():
+            raise AssertionError(f"{label} {key}: shape {out[key].shape} or "
+                                 f"non-finite values")
+    if not (out["expected_abs_error"] > 0).all():
+        raise AssertionError(f"{label}: expected_abs_error must be positive")
+
+
+def phase_stream(torch, k2, model, detector):
+    """256 live streams at full width; returns (K2 launches, recognizer,
+    the last tick's chunks and context)."""
+    from tpu_deer_torch.ops.audio_frontend import (
+        extract_utterance_features_batch,
+    )
+    from tpu_deer_torch.stream import StreamingConfig, StreamingRecognizer
+
+    cfg = StreamingConfig()  # n_fft 1024, hop 256, chunk 4096 (256 ms)
+    chunk = cfg.chunk_samples
+    rng = np.random.default_rng(SEED + 3)
+    audio = np.stack([voice(rng, TICKS * chunk, rng.uniform(90, 300))
+                      for _ in range(STREAMS)])
+    video, text = context(rng, STREAMS)
+    inactive = np.arange(STREAMS) % 5 == 4  # idle on tick 3
+    reset_ids = [3, 7, 11]  # ended and restarted before tick 5
+    recs = {plain: StreamingRecognizer(model, STREAMS, cfg, detector,
+                                       device=DEVICE, plain=plain)
+            for plain in (False, True)}
+
+    def drive(rec):
+        outs = []
+        for t in range(TICKS):
+            if t == 5:
+                rec.reset_streams(reset_ids)
+            active = ~inactive if t == 3 else None
+            outs.append(rec.push(audio[:, t * chunk:(t + 1) * chunk],
+                                 video, text, active))
+        return outs
+
+    # The main path, counted.
+    k2.mfcc_frames.launches = 0
+    outs = drive(recs[False])
+    launches = k2.mfcc_frames.launches
+    if launches != TICKS:
+        raise AssertionError(f"K2 launched {launches} times in {TICKS} ticks")
+    print(f"stream: {STREAMS} streams × {TICKS} ticks of {chunk} samples, K2 "
+          f"launches {launches}, slots {int(inactive.sum())} idle on tick 3, "
+          f"{len(reset_ids)} reset before tick 5")
+    for t, out in enumerate(outs):
+        check_outputs(out, STREAMS, f"tick {t}")
+
+    plain_outs = drive(recs[True])
+    err = max(check_close(f"tick {t} {key} kernel vs plain",
+                          torch.from_numpy(out[key]),
+                          torch.from_numpy(ref[key]), *FEAT_TOL)
+              for t, (out, ref) in enumerate(zip(outs, plain_outs))
+              for key in ref)
+    print(f"stream: every output of every tick, kernel vs plain: max abs "
+          f"err {err:.3e}")
+
+    # Card-side cross-check of K2 against K1: slot 0 streamed every tick.
+    offline = extract_utterance_features_batch(
+        torch.from_numpy(audio[:1]).to(DEVICE))[0].cpu().numpy()
+    streamed = outs[-1]["features"][0]
+    corr = float(np.corrcoef(streamed, offline)[0, 1])
+    if not corr > 0.99:
+        raise AssertionError(f"streamed vs offline correlation {corr}")
+    print(f"stream: slot 0 after {TICKS} ticks vs the offline extractor (K1) "
+          f"on the same {TICKS * chunk} samples: correlation {corr:.7f}, "
+          f"mean abs diff {np.abs(streamed - offline).mean():.3e}")
+    return launches, recs[False], audio[:, -chunk:], video, text
+
+
+def phase_server(torch, model, detector):
+    """serve() with 64 stream slots; returns the /stream/push latencies."""
+    from tpu_deer_torch.serve import InferenceEngine
+    from tpu_deer_torch.server import (
+        PredictionService,
+        StreamingSessionService,
+        serve,
+    )
+    from tpu_deer_torch.stream import StreamingRecognizer
+
+    rng = np.random.default_rng(SEED + 4)
+    chunk = 4096
+    # Clients send 16-bit PCM (pcm16_b64), as a live client would; the
+    # direct run below gets the same samples as the server decodes them.
+    pcm = np.stack([voice(rng, PUSHES * chunk, rng.uniform(90, 300))
+                    for _ in range(CLIENTS)])
+    pcm = np.clip(np.round(pcm * 32767), -32768, 32767).astype("<i2")
+    audio = pcm.astype(np.float32) / 32768.0
+    video, text = context(rng, CLIENTS)
+    streaming = StreamingSessionService(model, SERVER_SLOTS,
+                                        ood_detector=detector, device=DEVICE)
+    engine = InferenceEngine(model, ood_detector=detector, device=DEVICE)
+    service = PredictionService(engine, (84, 256, 768), micro_batch=True,
+                                streaming=streaming)
+    server = serve(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    slots, resps, lat = [None] * CLIENTS, [None] * CLIENTS, []
+    errors, barrier, lock = [], threading.Barrier(CLIENTS), threading.Lock()
+
+    def client(i):
+        try:
+            sid = post("/stream/start", {"video": video[i].tolist(),
+                                         "text": text[i].tolist()})["session_id"]
+            slots[i] = streaming.sessions[sid]
+            barrier.wait(timeout=60)
+            resps[i] = []
+            for k in range(PUSHES):
+                t0 = time.perf_counter()
+                resps[i].append(post("/stream/push", {
+                    "session_id": sid, "pcm16_b64": base64.b64encode(
+                        pcm[i, k * chunk:(k + 1) * chunk].tobytes()).decode()}))
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+            post("/stream/end", {"session_id": sid})
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    feats = [rng.normal(size=(n, d)).astype(np.float32)
+             for n in (1, 5, 3) for d in (84, 256, 768)]
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        predicted = []
+        for j in range(3):  # /predict while the sessions stream
+            a, v, t_ = feats[3 * j:3 * j + 3]
+            predicted.append((post("/predict", {"audio": a.tolist(),
+                                                "video": v.tolist(),
+                                                "text": t_.tolist()}),
+                              engine.predict(a, v, t_)))
+        for t in threads:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"stream clients failed: {errors[:3]}")
+        ticks = streaming.ticks
+    finally:
+        server.shutdown()
+        server.server_close()
+        streaming.close()
+        service.batcher.close()
+        thread.join(timeout=30)
+
+    for got, ref in predicted:
+        for key in ("mu", "uncertainty", "calibrated_uncertainty",
+                    "expected_abs_error", "ood_score"):
+            check_close(f"/predict {key}", torch.tensor(got[key]),
+                        torch.from_numpy(ref[key]).double(), *FEAT_TOL)
+        if got["is_ood"] != ref["is_ood"].tolist():
+            raise AssertionError("/predict is_ood differs from predict")
+
+    # The same chunks through a direct recognizer, each session in its slot.
+    rec = StreamingRecognizer(model, SERVER_SLOTS, ood_detector=detector,
+                              device=DEVICE)
+    ctx_v = np.zeros((SERVER_SLOTS, 256), np.float32)
+    ctx_t = np.zeros((SERVER_SLOTS, 768), np.float32)
+    ctx_v[slots], ctx_t[slots] = video, text
+    err = 0.0
+    for k in range(PUSHES):
+        chunks = np.zeros((SERVER_SLOTS, chunk), np.float32)
+        chunks[slots] = audio[:, k * chunk:(k + 1) * chunk]
+        active = np.zeros(SERVER_SLOTS, bool)
+        active[slots] = True
+        out = rec.push(chunks, ctx_v, ctx_t, active)
+        for i, slot in enumerate(slots):
+            resp = resps[i][k]
+            for key in ("mu", "uncertainty", "calibrated_uncertainty",
+                        "expected_abs_error", "ood_score"):
+                err = max(err, check_close(
+                    f"/stream/push client {i} push {k} {key}",
+                    torch.tensor(resp[key]),
+                    torch.from_numpy(np.asarray(out[key][slot])).double(),
+                    *FEAT_TOL))
+            if resp["is_ood"] != bool(resp["ood_score"] > rec.ood_threshold):
+                raise AssertionError("/stream/push is_ood disagrees with "
+                                     "its score")
+    print(f"server: {CLIENTS} clients × {PUSHES} /stream/push in {ticks} "
+          f"ticks ({CLIENTS * PUSHES / ticks:.2f} sessions a tick) + 3 "
+          f"/predict; responses vs a direct recognizer: max abs err "
+          f"{err:.3e}; /predict vs predict within FEAT_TOL")
+    return lat
+
+
+def phase_stream_timing(torch, rec, chunks, video, text, push_lat):
+    """Tick and push latency (host clock) and one profiled tick."""
+    reps = 30
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        rec.push(chunks, video, text)
+        lat.append(time.perf_counter() - t0)
+    p50 = float(np.median(lat))
+    audio_s = STREAMS * chunks.shape[1] / SR
+    print(f"stream tick at {STREAMS} streams: p50 {p50 * 1e3:.4f} ms (host "
+          f"clock, {reps} ticks, outputs copied to the host); real-time "
+          f"factor {audio_s / p50:.1f} ({audio_s:.3f} s of audio a tick)")
+    print(f"/stream/push under {CLIENTS} clients: p50 "
+          f"{np.median(push_lat) * 1e3:.4f} ms, max "
+          f"{np.max(push_lat) * 1e3:.4f} ms (host clock, "
+          f"{len(push_lat)} pushes of 16-bit PCM, HTTP + JSON included)")
+    profile_window(torch, f"stream tick {STREAMS}",
+                   lambda: rec.push(chunks, video, text))
+
+
+def ood_detector(rng):
+    """An input_norm-space detector fitted on features like the sessions'."""
+    from tpu_deer_torch.eval.ood import MahalanobisOOD
+
+    video, text = context(rng, 512)
+    audio = rng.normal(size=(512, 84)).astype(np.float32)
+    return MahalanobisOOD().fit_modalities(audio, video, text)
+
+
 def main() -> int:
     import torch
 
@@ -319,23 +673,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpu_deer_torch.kernels import build
+    from tpu_deer_torch.kernels import mfcc_frames as k2
     from tpu_deer_torch.kernels import mfcc_signal as k1
+    from tpu_deer_torch.models.deer_model import create_complete_deer_model
     from tpu_deer_torch.ops import audio_frontend as taf
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    report = build.build("mfcc_signal")
-    print(f"build: {time.perf_counter() - t0:.1f} s for mfcc_signal")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  mfcc_signal: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        reports = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(KERNELS)} "
+          f"(one nvcc each, in parallel)")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
 
     record = phase_kernel(torch, taf, k1)
     record["launches"] = phase_slice(torch, k1)
 
+    k2_record = phase_k2(torch, taf, k2)
+    model = create_complete_deer_model(seed=SEED)
+    detector = ood_detector(np.random.default_rng(SEED + 5))
+    k2_record["launches"], rec, chunks, video, text = phase_stream(
+        torch, k2, model, detector)
+    push_lat = phase_server(torch, model, detector)
+    phase_stream_timing(torch, rec, chunks, video, text, push_lat)
+
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, k2_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

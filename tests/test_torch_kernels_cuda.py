@@ -1,4 +1,5 @@
-"""Kernel K1 on the card against its plain twin (needs a CUDA device).
+"""Kernels K1 and K2 on the card against their plain twins (needs a CUDA
+device).
 
 Marked `cuda`; skips on a host without a card. On a machine with one, and
 without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
@@ -13,7 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_deer_torch import stream as tstream
+from tpu_deer_torch.kernels import mfcc_frames as k2
 from tpu_deer_torch.kernels.mfcc_signal import mfcc_signal, mfcc_signal_plain
+from tpu_deer_torch.models.deer_model import create_complete_deer_model
 from tpu_deer_torch.ops import audio_frontend as taf
 
 pytestmark = pytest.mark.cuda
@@ -57,3 +61,35 @@ def test_features_default_to_kernel_on_cuda(device):
     assert mfcc_signal.launches == before + 1
     plain = taf.extract_utterance_features_batch(sig, plain=True)
     torch.testing.assert_close(feats, plain, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_fft,rows", [(512, 37), (1024, 4096), (1024, 597)])
+def test_k2_matches_plain(device, n_fft, rows):
+    """Rows not a multiple of the kernel's 32-row block included."""
+    rng = np.random.default_rng(rows)
+    frames = torch.from_numpy(
+        rng.normal(size=(rows, n_fft)).astype(np.float32)).to(device)
+    bases = taf._device_bases(taf.AudioFrontendConfig(n_fft=n_fft), device)
+    before = k2.mfcc_frames.launches
+    got = k2.mfcc_frames(frames, bases, n_fft)
+    torch.cuda.synchronize()
+    assert k2.mfcc_frames.launches == before + 1
+    ref = k2.mfcc_frames_plain(frames, bases, n_fft)
+    for g, r, (rtol, atol) in zip(got, ref, TOL):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
+def test_stream_tick_launches_k2_once(device):
+    """One push of 4 streams is one K2 launch, and matches plain=True."""
+    model = create_complete_deer_model(seed=0, device=device)
+    recs = [tstream.StreamingRecognizer(model, n_streams=4, device=device,
+                                        plain=plain) for plain in (False, True)]
+    chunks = np.random.default_rng(0).normal(size=(4, 4096)).astype(np.float32)
+    before = k2.mfcc_frames.launches
+    got = recs[0].push(chunks)
+    assert k2.mfcc_frames.launches == before + 1
+    ref = recs[1].push(chunks)
+    assert k2.mfcc_frames.launches == before + 1
+    for key in ref:
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-4, atol=1e-5,
+                                   err_msg=key)

@@ -29,6 +29,8 @@ from tpu_deer_torch.models.deer_model import (
     create_complete_deer_model,
 )
 from tpu_deer_torch.serve import InferenceEngine, bucketed_predict
+from tpu_deer_torch.server import StreamingSessionService
+from tpu_deer_torch.stream import StreamingRecognizer
 
 torch.set_num_threads(1)
 
@@ -123,7 +125,9 @@ def test_outputs_are_sane():
 @pytest.mark.parametrize("entry", ["create_complete_deer_model",
                                    "AudioFeatureExtractor",
                                    "MultimodalFeatureExtractor",
-                                   "InferenceEngine"])
+                                   "InferenceEngine",
+                                   "StreamingRecognizer",
+                                   "StreamingSessionService"])
 def test_entry_points_default_to_cuda(entry):
     """Without device= the port runs on the card, and on a host without one
     it raises instead of running on the CPU."""
@@ -134,14 +138,16 @@ def test_entry_points_default_to_cuda(entry):
         "AudioFeatureExtractor": AudioFeatureExtractor,
         "MultimodalFeatureExtractor": MultimodalFeatureExtractor,
         "InferenceEngine": lambda: InferenceEngine(CompleteDEERModel()),
+        "StreamingRecognizer": lambda: StreamingRecognizer(CompleteDEERModel()),
+        "StreamingSessionService": lambda: StreamingSessionService(
+            CompleteDEERModel(), start=False),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
 
 
 @pytest.mark.parametrize("kw", [dict(quantize_weights=True),
-                                dict(ensemble=True),
-                                dict(ood_detector=object())])
+                                dict(ensemble=True)])
 def test_unported_serving_options_raise(kw):
     with pytest.raises(NotImplementedError):
         InferenceEngine(CompleteDEERModel(), device="cpu", **kw)

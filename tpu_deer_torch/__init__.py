@@ -8,10 +8,14 @@ follow the reference so each piece has an obvious counterpart:
   tpu_deer.ops.dsp             → tpu_deer_torch.ops.dsp (own numpy copy)
   tpu_deer.ops.audio_frontend  → tpu_deer_torch.ops.audio_frontend
                                  + tpu_deer_torch.kernels.mfcc_signal (K1)
+                                 + tpu_deer_torch.kernels.mfcc_frames (K2)
   tpu_deer.data.features       → tpu_deer_torch.data.features
   tpu_deer.core.nig            → tpu_deer_torch.core.nig
   tpu_deer.models.*            → tpu_deer_torch.models.*
+  tpu_deer.eval.ood            → tpu_deer_torch.eval.ood (own numpy copy)
   tpu_deer.serve               → tpu_deer_torch.serve
+  tpu_deer.stream              → tpu_deer_torch.stream
+  tpu_deer.server              → tpu_deer_torch.server
   (flax params ↔ state_dict)   → tpu_deer_torch.convert
 
 Nothing here imports `jax`, `flax` or `tpu_deer`. Entry points run on CUDA

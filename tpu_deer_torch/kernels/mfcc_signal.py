@@ -53,6 +53,12 @@ def _check(x_pad: torch.Tensor, bases: dict, n_fft: int, hop: int) -> None:
             f"x_pad [B, Tp] needs B >= 1 and Tp >= n_fft={n_fft}, "
             f"got {tuple(x_pad.shape)}"
         )
+    check_bases(bases, n_fft, x_pad.device)
+
+
+def check_bases(bases: dict, n_fft: int, device: torch.device) -> None:
+    """Raise unless `bases` are audio_frontend._device_bases for this n_fft,
+    contiguous float32 on `device` (K1 and K2 read the same bases)."""
     n_bins = n_fft // 2 + 1
     n_mels, n_mfcc = bases["dct"].shape
     # The bases (audio_frontend._device_bases) the two paths read.
@@ -68,9 +74,9 @@ def _check(x_pad: torch.Tensor, bases: dict, n_fft: int, hop: int) -> None:
                              f"expected {shape}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"bases[{key!r}] must be contiguous float32")
-        if t.device != x_pad.device:
+        if t.device != device:
             raise ValueError(f"bases[{key!r}] is on {t.device}, "
-                             f"x_pad on {x_pad.device}")
+                             f"the input on {device}")
 
 
 def mfcc_signal_plain(x_pad: torch.Tensor, bases: dict, n_fft: int, hop: int):

@@ -1,17 +1,22 @@
 """Audio feature front-end: signal → MFCC/power/RMS/ZCR → 84-d utterance vector.
 
-Port of `tpu_deer/ops/audio_frontend.py` for the serving path. The fused
-front-end is one call, `mfcc_from_signal`, through the wrapper of kernel K1
-(`tpu_deer_torch.kernels.mfcc_signal`), the CUDA counterpart of the
-reference's Pallas kernel: a CUDA tensor launches the kernel (frames never
-reach device memory), a CPU tensor takes the plain twin, the same function
-as unfold + matmuls (the reference's `path="frames"` numerics).
+Port of `tpu_deer/ops/audio_frontend.py` for the serving and streaming
+paths. Two fused entry points, each through a kernel's wrapper: a CUDA
+tensor launches the kernel, a CPU tensor takes its plain twin, and
 `plain=True` forces the plain twin on the card, to check the kernel.
 
-Everything downstream (deltas, F0 by autocorrelation, spectral centroid,
-the 84-d vector) is plain tensor code over a batch dimension written out
-where the reference vmaps. The enhanced vector, the frame-feature matrix
-and the frames-input entry points are not ported yet.
+  * `mfcc_from_signal` — kernel K1 (`tpu_deer_torch.kernels.mfcc_signal`):
+    from the signal, frames never reach device memory; the plain twin is
+    unfold + matmuls (the reference's `path="frames"` numerics).
+  * `mfcc_frames` — kernel K2 (`tpu_deer_torch.kernels.mfcc_frames`): from
+    frames the caller holds (the streaming tick); all leading axes go into
+    the kernel's rows, one launch, as the reference's custom_vmap collapses
+    the stream axis.
+
+Everything downstream (framing, deltas, F0 by autocorrelation, spectral
+centroid, RMS, ZCR, the 84-d vector) is plain tensor code over a batch
+dimension written out where the reference vmaps. The enhanced vector and
+the frame-feature matrix are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_deer_torch.kernels import mfcc_frames as k2
 from tpu_deer_torch.kernels.mfcc_signal import mfcc_signal, mfcc_signal_plain
 from tpu_deer_torch.ops import dsp
 
@@ -125,6 +131,38 @@ def mfcc_from_signal(signals: torch.Tensor,
     if squeeze:
         out = tuple(a[0] for a in out)
     return out
+
+
+def frame_signal(signal: torch.Tensor, cfg: AudioFrontendConfig) -> torch.Tensor:
+    """signal [..., T] → frames [..., N, n_fft] (centered, reflect-padded;
+    a view of the padded signal, not a copy)."""
+    lead = signal.shape[:-1]
+    x_pad, _ = _pad_for_frames(signal.reshape(-1, signal.shape[-1]), cfg)
+    frames = x_pad.unfold(-1, cfg.n_fft, cfg.hop_length)
+    return frames.reshape(*lead, *frames.shape[1:])
+
+
+def mfcc_frames(frames: torch.Tensor,
+                cfg: AudioFrontendConfig = AudioFrontendConfig(),
+                plain: bool = False):
+    """frames [..., n_fft] → (mfcc [..., n_mfcc], logmel [..., n_mels],
+    power [..., n_bins]), one K2 launch over all leading axes on the card."""
+    lead = frames.shape[:-1]
+    rows = frames.reshape(-1, cfg.n_fft).contiguous()
+    bases = _device_bases(cfg, rows.device)
+    fn = k2.mfcc_frames_plain if plain else k2.mfcc_frames
+    return tuple(a.reshape(*lead, a.shape[-1])
+                 for a in fn(rows, bases, cfg.n_fft))
+
+
+def zero_crossing_rate(frames: torch.Tensor) -> torch.Tensor:
+    """Per-frame ZCR (fraction of sign changes)."""
+    changes = torch.diff(torch.sign(frames), dim=-1) != 0
+    return changes.to(torch.float32).mean(dim=-1)
+
+
+def rms_energy(frames: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(torch.square(frames), dim=-1))
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,12 @@ bucket are chunked, the model runs in eval mode under inference_mode on its
 device, and the result is VAD predictions with calibrated uncertainty, the
 aleatoric/epistemic decomposition and the closed-form E|y - mu|.
 
-int8 weights, ensembles, the OOD guardrail and loading from a checkpoint
-are not ported yet and raise NotImplementedError.
+With an OOD detector (`tpu_deer_torch.eval.ood.MahalanobisOOD`) every
+prediction also carries `ood_score`, computed on the device in the
+detector's feature space, and `is_ood` at its threshold.
+
+int8 weights, ensembles and loading from a checkpoint are not ported yet
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import torch
 
 from tpu_deer_torch.core.nig import nig_expected_abs_error
 from tpu_deer_torch.device import DeviceLike, resolve_device
+from tpu_deer_torch.eval.ood import (
+    input_norm_features_device,
+    mahalanobis_score_device,
+)
 from tpu_deer_torch.models.deer_model import CompleteDEERModel
 
 DEFAULT_BUCKETS = (1, 8, 64, 256)
@@ -63,19 +71,21 @@ class InferenceEngine:
         quantize_weights: bool = False,
         ensemble: bool = False,
         ood_detector=None,
+        ood_fpr: float = 0.01,
         serving_channel: str = "eabs",
         device: DeviceLike = None,
     ):
         """Serve `model` (its weights, moved to `device`: None = the CUDA
         card). serving_channel names the uncertainty deployment reads:
         "calibrated" (calibrated_uncertainty) or "eabs" (expected_abs_error,
-        the training-free default)."""
+        the training-free default). ood_detector: a fitted MahalanobisOOD,
+        scored in its own space ("input_norm": the normalized inputs,
+        "fused": the model's fused features); is_ood flags scores above its
+        threshold at the training false-positive rate `ood_fpr`."""
         if quantize_weights:
             raise NotImplementedError("int8 serving is not ported yet")
         if ensemble:
             raise NotImplementedError("ensemble serving is not ported yet")
-        if ood_detector is not None:
-            raise NotImplementedError("the OOD guardrail is not ported yet")
         if serving_channel not in ("calibrated", "eabs"):
             raise ValueError(
                 f"serving_channel must be 'calibrated' or 'eabs', "
@@ -85,6 +95,13 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.buckets = sorted(batch_buckets)
+        self._ood = None
+        self._ood_threshold = None
+        if ood_detector is not None:
+            self._ood = tuple(torch.from_numpy(np.asarray(a)).to(self.device)
+                              for a in ood_detector.device_arrays)
+            self._ood_threshold = ood_detector.threshold(ood_fpr)
+            self._ood_space = ood_detector.space
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str, *args, **kwargs):
@@ -94,7 +111,7 @@ class InferenceEngine:
         out = self.model(audio, video, text)
         names = self.model.config.dim_names
         cat = lambda key: torch.cat([out[f"{n}_{key}"] for n in names], dim=-1)
-        return {
+        res = {
             "mu": out["mu_all"],
             "uncertainty": out["uncertainty_all"],
             "calibrated_uncertainty": out["calibrated_uncertainty"],
@@ -106,6 +123,12 @@ class InferenceEngine:
             ),
             "attention_weights": out["attention_weights"],
         }
+        if self._ood is not None:
+            feats = (input_norm_features_device(audio, video, text)
+                     if self._ood_space == "input_norm"
+                     else out["fused_features"])
+            res["ood_score"] = mahalanobis_score_device(feats, *self._ood)
+        return res
 
     def _run(self, audio, video, text) -> dict[str, np.ndarray]:
         as_t = lambda x: torch.from_numpy(
@@ -120,4 +143,7 @@ class InferenceEngine:
 
         Requests larger than the biggest bucket are processed in chunks.
         """
-        return bucketed_predict(self._run, self.buckets, audio, video, text)
+        out = bucketed_predict(self._run, self.buckets, audio, video, text)
+        if self._ood_threshold is not None:
+            out["is_ood"] = out["ood_score"] > self._ood_threshold
+        return out
