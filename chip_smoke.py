@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and streaming paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, streaming and raw-media training
+paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,21 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
   6. server — serve() on 127.0.0.1 with 64 stream slots and an OOD
               detector: 16 clients × 4 /stream/push plus /predict requests,
               responses held against a direct StreamingRecognizer run and a
-              direct predict; then tick and push latency and a profile.
+              direct predict; then tick and push latency and a profile;
+  7. K3     — the flash-attention kernels (K3a forward, K3b dq, K3c dk/dv)
+              against their plain twins at B·H = 8, T = 100, D = 32 and at
+              D = 64, each with an all-masked element, and at the training
+              shape B = 64, H = 4, T = 2048, D = 32 with a padding mask; their
+              times beside their bounds, the plain twins and PyTorch's SDPA;
+              the K3-vs-SDPA crossover over T ∈ {512, 1024, 2048, 4096};
+  8. train  — RawSequenceTrainer on a 768/96/96-utterance IEMOCAP-layout
+              fixture (seed 42, transcripts padded to 2,048 tokens) at the
+              CLI's full width: 24 steps (lr 2e-3, batch 64, 2 epochs) and
+              predict on the test split, with the launches of K1 and K3a-c
+              on every step and predict batch; step time, val CCC, a
+              profiled step; the step time at the CLI's own 16 tokens (no
+              K3); then 3 steps, each run with the kernels and with their
+              plain twins from the same state.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -38,6 +53,7 @@ exits non-zero and prints no result. Without a CUDA device it exits 1.
 from __future__ import annotations
 
 import base64
+import copy
 import json
 import math
 import os
@@ -53,13 +69,37 @@ import numpy as np
 SEED = 0
 SR = 16000
 N_UTTERANCES = 300
-KERNELS = ("mfcc_signal", "mfcc_frames")  # csrc/<name>.cu
+KERNELS = ("mfcc_signal", "mfcc_frames", "flash_attention")  # csrc/<name>.cu
 STREAMS = 256  # concurrent streams per tick (the shape of bench.py:281-283)
 TICKS = 8
 SERVER_SLOTS, CLIENTS, PUSHES = 64, 16, 4
-DEVICE = "cuda"  # the stream phases' device (a CPU rehearsal sets "cpu")
+DEVICE = "cuda"  # phases 4-6 and 8 (a CPU rehearsal sets "cpu")
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 (informational: 3xTF32 floor)
+# K3 against its plain twin (rtol, atol): float32 FMAs in another order than
+# cuBLAS's over up to 2,048 keys; lse and δ are sums of the same kind.
+K3_TOL = (1e-4, 5e-5)
+K3_SHAPE = (64, 4, 2048, 32)  # B, H, T, D of the training step's text layers
+RAW_FIXTURE = (768, 96, 96)  # cli.py --raw, non-quick
+RAW_BATCH = 64  # cli.py --raw, non-quick
+# Transcripts padded to 2,048 tokens so that both train (>= 1024) and predict
+# (>= 2048) take K3; the CLI's loader pads to 16 (no K3), and the fixture's
+# transcripts hold ~9 tokens, so nearly all of K3's keys are padding here.
+RAW_MAX_TOKENS = 2048
+CLI_MAX_TOKENS = 16  # load_raw_corpus's default, as cli.py --raw loads it
+RAW_STEPS_COMPARED = 3
+# Training steps with the kernels vs their plain twins, each from the same
+# state. Losses and clipped gradients (rtol, atol): float32 forward and
+# backward through ~40 layers with K1's and K3's sums in another order.
+# Parameters after an AdamW step of lr 2e-3: Adam steps by about g/|g|, so a
+# gradient difference ε moves an entry's step by about lr·ε/|g|. Entries
+# whose plain gradient is at least GRAD_FLOOR (100× the largest gradient
+# difference, 7.8e-7, of the card's first runs) are held within PARAM_ATOL
+# (5× that estimate); an entry whose exact gradient is ~0 steps ±lr on float
+# noise, so it is shown, not held.
+TRAIN_TOL = {"loss": (1e-4, 1e-5), "grads": (1e-3, 1e-6)}
+GRAD_FLOOR, PARAM_ATOL = 1e-4, 1e-4
 # (rtol, atol) for mfcc, logmel, power, timefeats: float32 sums of 1024
 # products in another order (cuBLAS vs the kernel's FMA chain); ZCR exact.
 K1_TOL = ((2e-3, 5e-3), (2e-4, 1e-3), (2e-4, 1e-3), (1e-4, 1e-5))
@@ -663,6 +703,352 @@ def ood_detector(rng):
     return MahalanobisOOD().fit_modalities(audio, video, text)
 
 
+def k3_case(torch, b, h, t, d, lengths, seed):
+    """(q, k, v, mask, dO) on the card; lengths[i] valid keys in element i."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g) for _ in range(4))
+    mask = (torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None])
+    return [x.cuda() for x in (q, k, v, mask.to(torch.float32), do)]
+
+
+def k3_work(b, h, t, d, lengths):
+    """(FLOPs, bytes) that K3a, K3b, K3c's functions need at [B, H, T, D]
+    when element i has lengths[i] > 0 valid keys: a masked key adds exactly
+    0 to O, dq, dk and dv, so only valid keys count. Operations 4, 6 and 8
+    · H·T·D·Σ lengths; bytes with q-side rows (T·D floats) and the valid
+    keys' k and v rows read once, each output written once in full, T-long
+    lse and δ and the [B, T] mask."""
+    keys = int(sum(lengths))
+    rows, kv, stats, mask = b * h * t * d * 4, h * keys * d * 4, b * h * t * 4, b * t * 4
+    base = h * t * d * keys
+    return {"fwd": (4 * base, 2 * rows + 2 * kv + stats + mask),      # q k v → O, lse
+            "dq": (6 * base, 4 * rows + 2 * kv + 2 * stats + mask),   # q k v O dO lse → dq δ
+            "dkv": (8 * base, 4 * rows + 2 * kv + 2 * stats + mask)}  # q k v dO lse δ → dk dv
+
+
+def phase_k3(torch, k3):
+    """K3a-c against their plain twins on the card; returns the three
+    kernels' records (launches filled in by phase 8)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 6)
+    b, h, t, d = K3_SHAPE
+    cases = [
+        ("B·H=8 T=100 D=32", (2, 4, 100, 32), [60, 0]),
+        ("B·H=4 T=200 D=64", (2, 2, 200, 64), [200, 0]),
+        ("training shape", K3_SHAPE, list(rng.integers(t // 8, t + 1, size=b))),
+    ]
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for label, (cb, ch, ct, cd), lengths in cases:
+        q, k, v, mask, do = k3_case(torch, cb, ch, ct, cd, lengths, SEED)
+        before = (k3.flash_attention_fwd.launches,
+                  k3.flash_attention_bwd_dq.launches,
+                  k3.flash_attention_bwd_dkv.launches)
+        o, lse = k3.flash_attention_fwd(q, k, v, mask)
+        delta, dq = k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse)
+        dk, dv = k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
+        torch.cuda.synchronize()
+        after = (k3.flash_attention_fwd.launches,
+                 k3.flash_attention_bwd_dq.launches,
+                 k3.flash_attention_bwd_dkv.launches)
+        if after != tuple(x + 1 for x in before):
+            raise AssertionError("a K3 wrapper did not count its launch")
+        ro, rlse = k3.flash_attention_fwd_plain(q, k, v, mask)
+        rdelta, rdq = k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)
+        rdk, rdv = k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse,
+                                                    delta)
+        line = []
+        for kern, name, got, ref in (("fwd", "O", o, ro), ("fwd", "lse", lse, rlse),
+                                     ("dq", "delta", delta, rdelta),
+                                     ("dq", "dq", dq, rdq), ("dkv", "dk", dk, rdk),
+                                     ("dkv", "dv", dv, rdv)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K3 {name} {label}: non-finite values")
+            err = check_close(f"K3 {name} {label}", got, ref, *K3_TOL)
+            errs[kern] = max(errs[kern], err)
+            line.append(f"{name} {err:.3e}")
+        if 0 in lengths:  # the all-masked element: reference_attention's values
+            i = lengths.index(0)
+            if dq[i].any() or dk[i].any():
+                raise AssertionError("K3: dq, dk of an all-masked element not 0")
+            check_close("K3 all-masked O", o[i], v[i].mean(1, keepdim=True)
+                        .expand_as(o[i]), *K3_TOL)
+            check_close("K3 all-masked dv", dv[i], (do[i].sum(1, keepdim=True)
+                        / ct).expand_as(dv[i]), *K3_TOL)
+        print(f"K3 vs plain, {label} (B={cb} H={ch} T={ct} D={cd}): max abs "
+              f"err {', '.join(line)}"
+              + ("; all-masked element: mean of v, dq = dk = 0" if 0 in lengths
+                 else ""))
+        del ro, rlse, rdelta, rdq, rdk, rdv
+
+    # Timing at the training shape (the last case's tensors).
+    add_mask = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
+    fns = {
+        "fwd": (lambda: k3.flash_attention_fwd(q, k, v, mask),
+                lambda: k3.flash_attention_fwd_plain(q, k, v, mask)),
+        "dq": (lambda: k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse),
+               lambda: k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)),
+        "dkv": (lambda: k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta),
+                lambda: k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse,
+                                                         delta)),
+    }
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=add_mask)
+    library = {
+        "fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=add_mask)),
+        "bwd": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True)),
+    }
+    work = k3_work(b, h, t, d, lengths)
+    print(f"K3 timing inputs: {int(sum(lengths))} valid keys of {b * t} "
+          f"({100 * sum(lengths) / (b * t):.1f}%); the bounds count valid "
+          f"keys only, the kernels score every key")
+    records = []
+    # (kernel, record name, the TPU kernel's body: _fwd_kernel,
+    # _bwd_dq_kernel, _bwd_dkv_kernel)
+    for kern, name, line in (("fwd", "flash_attention_fwd", 44),
+                             ("dq", "flash_attention_bwd_dq", 85),
+                             ("dkv", "flash_attention_bwd_dkv", 116)):
+        kernel_ms, plain_ms = (time_ms(f, reps=10) for f in fns[kern])
+        flops, nbytes = work[kern]
+        t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        lib_ms = library["fwd" if kern == "fwd" else "bwd"]
+        print(f"K3 {kern} at B={b} H={h} T={t} D={d}: kernel {kernel_ms:.4f} ms, "
+              f"plain twin {plain_ms:.4f} ms, SDPA "
+              f"{'forward' if kern == 'fwd' else 'backward (all of dq, dk, dv)'} "
+              f"{lib_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
+              f"({flops / 1e9:.1f} GFLOP f32 -> {t_ops:.4f} ms, "
+              f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); informational "
+              f"3xTF32 floor {3 * flops / TF32_FLOPS * 1e3:.4f} ms")
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_deer_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"tpu_deer/ops/flash_attention.py:{line}",
+            "launches": None,  # filled from the training phase's run
+            "max_abs_err": errs[kern],
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        })
+    del leaves, sdpa_out, q, k, v, do, o, lse, delta, dq, dk, dv
+
+    # Crossover against SDPA (B = 16, H = 4, D = 32, a padding mask).
+    for ct in (512, 1024, 2048, 4096):
+        lengths = list(rng.integers(ct // 8, ct + 1, size=16))
+        q, k, v, mask, do = k3_case(torch, 16, 4, ct, 32, lengths, SEED + ct)
+        add_mask = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
+
+        def fwd_bwd(fn):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            return lambda: torch.autograd.grad(fn(*leaves), leaves, do)
+
+        flash = lambda q_, k_, v_: k3.flash_attention(q_, k_, v_, mask)
+        sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=add_mask)
+        times = [time_ms(lambda: flash(q, k, v), reps=10),
+                 time_ms(lambda: sdpa(q, k, v), reps=10),
+                 time_ms(fwd_bwd(flash), reps=10), time_ms(fwd_bwd(sdpa), reps=10)]
+        print(f"K3 vs SDPA crossover, B=16 H=4 D=32 T={ct}: forward K3 "
+              f"{times[0]:.4f} ms, SDPA {times[1]:.4f} ms; forward+backward "
+              f"K3 {times[2]:.4f} ms, SDPA {times[3]:.4f} ms")
+    return records
+
+
+def phase_train(torch, k1, k3):
+    """Raw-media training at the CLI's full width; returns the launches of
+    K1, K3a, K3b and K3c in the counted run."""
+    import tempfile
+
+    from tpu_deer_torch.data.raw_corpus import (
+        generate_raw_fixture,
+        load_raw_corpus,
+    )
+    from tpu_deer_torch.models import attention
+    from tpu_deer_torch.models.hierarchical_deer import (
+        create_raw_sequence_model,
+    )
+    from tpu_deer_torch.ops import audio_frontend as taf
+    from tpu_deer_torch.train.raw_trainer import (
+        RawSequenceTrainer,
+        RawTrainingConfig,
+    )
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="raw_fixture_") as root:
+        generate_raw_fixture(root, *RAW_FIXTURE, seed=42)
+        splits, vocab = load_raw_corpus(root, max_tokens=RAW_MAX_TOKENS)
+        cli_tr = load_raw_corpus(root, max_tokens=CLI_MAX_TOKENS)[0]["train"]
+    tr, val, test = splits["train"], splits["val"], splits["test"]
+    print(f"train: fixture {RAW_FIXTURE} utterances written and loaded in "
+          f"{time.perf_counter() - t0:.1f} s; signals {tr['signal'].shape}, "
+          f"video {tr['video_frames'].shape}, tokens {tr['token_ids'].shape} "
+          f"({tr['token_mask'].sum(1).mean():.1f} real on average; the CLI "
+          f"pads to {CLI_MAX_TOKENS}), vocab {vocab.vocab_size}")
+    model_kw = dict(encoder_dim=128, fusion_dim=256, vocab_size=vocab.vocab_size,
+                    num_heads=4, dropout=0.1)
+    cfg = RawTrainingConfig(learning_rate=2e-3, batch_size=RAW_BATCH,
+                            num_epochs=2)
+    model = create_raw_sequence_model(seed=SEED, device=DEVICE, **model_kw)
+    n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    trainer = RawSequenceTrainer(model, cfg, device=DEVICE)
+
+    counters = (k1.mfcc_signal, k3.flash_attention_fwd,
+                k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv)
+    read = lambda: [c.launches for c in counters]
+
+    def timed(trainer, steps):
+        """Wrap trainer's step to append (seconds, launches) to steps."""
+        step_fn = trainer._train_step
+
+        def timed_step(batch):
+            before = read()
+            t_start = time.perf_counter()
+            loss = step_fn(batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t_start,
+                          [a - b for a, b in zip(read(), before)]))
+            return loss
+
+        trainer._train_step = timed_step
+        return step_fn
+
+    steps = []
+    step_fn = timed(trainer, steps)
+    # The main path, counted: 2 epochs (with val predicts), then predict.
+    for c in counters:
+        c.launches = 0
+    result = trainer.train(tr, val)
+    pred = trainer.predict(test)
+    launches = read()
+    trainer._train_step = step_fn
+
+    n_steps = cfg.num_epochs * (len(tr["labels"]) // cfg.batch_size)
+    batches = -(-len(val["labels"]) // cfg.batch_size) * cfg.num_epochs + \
+        -(-len(test["labels"]) // cfg.batch_size)
+    if len(steps) != n_steps or any(d != [1, 2, 2, 2] for _, d in steps):
+        raise AssertionError(f"train steps launched {[d for _, d in steps]}, "
+                             f"expected [1, 2, 2, 2] (K1, K3a, K3b, K3c) each")
+    want = [n_steps + batches, 2 * (n_steps + batches), 2 * n_steps, 2 * n_steps]
+    if launches != want:
+        raise AssertionError(f"launches K1, K3a, K3b, K3c {launches}, want "
+                             f"{want} ({n_steps} steps, {batches} predict "
+                             f"batches)")
+    losses = result["history"]["train_loss"]
+    if not np.isfinite(losses).all() or pred["mu"].shape != (len(test["labels"]), 3) \
+            or not np.isfinite(pred["mu"]).all() \
+            or not (pred["uncertainty"] > 0).all():
+        raise AssertionError("training produced non-finite losses or outputs")
+    from tpu_deer_torch.core.metrics import ccc_np
+
+    test_ccc = float(np.mean([ccc_np(test["labels"][:, i], pred["mu"][:, i])
+                              for i in range(3)]))
+    step_ms = [1e3 * t for t, _ in steps]
+    print(f"train: {n_params} trained params, {n_steps} steps of "
+          f"{cfg.batch_size} at {RAW_MAX_TOKENS} tokens: step p50 "
+          f"{np.median(step_ms):.4f} ms (first {step_ms[0]:.1f} ms, host clock "
+          f"to a synchronize); epoch losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; val CCC "
+          f"{', '.join(f'{x:.4f}' for x in result['history']['val_ccc'])}; "
+          f"test CCC {test_ccc:.4f}")
+    print(f"train: launches K1 {launches[0]}, K3a {launches[1]}, K3b "
+          f"{launches[2]}, K3c {launches[3]}: [1, 2, 2, 2] on each of "
+          f"{n_steps} steps, [1, 2, 0, 0] on each of {batches} predict batches")
+    staged = trainer._stage(tr)
+    batch = trainer._gather(staged, np.arange(cfg.batch_size))
+    profile_window(torch, "train step", lambda: trainer._train_step(batch))
+
+    # The same step at the CLI's own transcript length (no K3: T < 1024).
+    cli_steps = []
+    m = create_raw_sequence_model(seed=SEED, device=DEVICE, **model_kw)
+    t16 = RawSequenceTrainer(m, cfg, device=DEVICE)
+    timed(t16, cli_steps)
+    t16.train(cli_tr, num_epochs=1)
+    if any(d != [1, 0, 0, 0] for _, d in cli_steps):
+        raise AssertionError(f"steps at {CLI_MAX_TOKENS} tokens launched "
+                             f"{[d for _, d in cli_steps]}, expected K1 only")
+    cli_ms = [1e3 * t for t, _ in cli_steps]
+    print(f"train: the same step at the CLI's {CLI_MAX_TOKENS} tokens: p50 "
+          f"{np.median(cli_ms[1:]):.4f} ms over {len(cli_ms) - 1} steps after "
+          f"the first ({cli_ms[0]:.1f} ms); K1 once a step, no K3")
+    profile_window(torch, f"train step at {CLI_MAX_TOKENS} tokens",
+                   lambda: t16._train_step(t16._gather(
+                       t16._stage(cli_tr), np.arange(cfg.batch_size))))
+    del m, t16
+
+    # Kernels against plain twins over 3 steps. Each step runs the plain
+    # twins of K1 and K3 (patched in where the front-end and
+    # MultiHeadAttention call the wrappers), then the kernels, from the same
+    # parameters, optimizer state, batch and dropout draws; the next step
+    # starts from the kernel path's. Carried on separately, the two paths
+    # part: an entry whose exact gradient is ~0 takes an Adam step of ±lr
+    # on float noise, and the next steps' gradients differ by far more than
+    # the kernels' rounding.
+    torch.backends.cudnn.deterministic = True
+    saved = (attention.flash_attention, taf.mfcc_signal)
+    m = create_raw_sequence_model(seed=SEED + 1, device=DEVICE, **model_kw)
+    t3 = RawSequenceTrainer(m, cfg, device=DEVICE)
+    staged = t3._stage(tr)
+
+    def one_step(batch, seed, plain):
+        """(loss, clipped gradients, parameters after) of one step, its
+        launches checked: K1 and K3 with the kernels, none with the twins."""
+        if plain:
+            attention.flash_attention = k3.flash_attention_plain
+            taf.mfcc_signal = k1.mfcc_signal_plain
+        try:
+            torch.manual_seed(seed)
+            before = read()
+            loss = float(t3._train_step(batch))
+            launched = [a - b for a, b in zip(read(), before)]
+        finally:
+            attention.flash_attention, taf.mfcc_signal = saved
+        want = [0] * 4 if plain else [1, 2, 2, 2]
+        if launched != want:
+            raise AssertionError(f"{'plain' if plain else 'kernel'} step "
+                                 f"launched K1, K3a-c {launched}, want {want}")
+        named = list(m.named_parameters())
+        return (loss, {n: p.grad.clone() for n, p in named if p.grad is not None},
+                {n: p.detach().clone() for n, p in named})
+
+    rows = []
+    for step in range(RAW_STEPS_COMPARED):
+        batch = t3._gather(staged, np.arange(step * cfg.batch_size,
+                                             (step + 1) * cfg.batch_size))
+        start = copy.deepcopy((m.state_dict(), t3.optimizer.state_dict()))
+        pl, pg, pp = one_step(batch, SEED + step, plain=True)
+        m.load_state_dict(start[0])
+        t3.optimizer.load_state_dict(start[1])
+        kl, kg, kp = one_step(batch, SEED + step, plain=False)
+        label = f"step {step + 1} kernels vs plain"
+        loss_err = check_close(f"{label}: loss", torch.tensor(kl),
+                               torch.tensor(pl), *TRAIN_TOL["loss"])
+        grad_err = max(check_close(f"{label}: gradient {n}", kg[n], pg[n],
+                                   *TRAIN_TOL["grads"]) for n in pg)
+        diffs = torch.cat([(kp[n] - pp[n]).abs().flatten() for n in pp])
+        held = torch.cat([(pg[n].abs() >= GRAD_FLOOR).flatten() if n in pg
+                          else torch.zeros(pp[n].numel(), dtype=torch.bool,
+                                           device=pp[n].device) for n in pp])
+        held_err = diffs[held].max().item()
+        if held_err > PARAM_ATOL:
+            raise AssertionError(f"{label}: parameters with |gradient| >= "
+                                 f"{GRAD_FLOOR} differ by {held_err:.3e} > "
+                                 f"{PARAM_ATOL}")
+        rows.append(f"step {step + 1}: loss {kl:.7f} vs {pl:.7f} (err "
+                    f"{loss_err:.3e}), gradients {grad_err:.3e} (largest "
+                    f"{max(g.abs().max().item() for g in pg.values()):.3e}), "
+                    f"parameters {held_err:.3e} on the {int(held.sum())} of "
+                    f"{held.numel()} with |g| >= {GRAD_FLOOR}, the rest up to "
+                    f"{diffs[~held].max().item() if (~held).any() else 0:.3e}")
+    torch.backends.cudnn.deterministic = False
+    print(f"train: K1 and K3 vs their plain twins, each step from the same "
+          f"state; " + "; ".join(rows))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -673,6 +1059,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpu_deer_torch.kernels import build
+    from tpu_deer_torch.kernels import flash_attention as k3
     from tpu_deer_torch.kernels import mfcc_frames as k2
     from tpu_deer_torch.kernels import mfcc_signal as k1
     from tpu_deer_torch.models.deer_model import create_complete_deer_model
@@ -701,8 +1088,13 @@ def main() -> int:
     push_lat = phase_server(torch, model, detector)
     phase_stream_timing(torch, rec, chunks, video, text, push_lat)
 
+    k3_records = phase_k3(torch, k3)
+    launches = phase_train(torch, k1, k3)
+    for k3_record, n in zip(k3_records, launches[1:]):
+        k3_record["launches"] = n
+
     print(card)
-    print(json.dumps({"kernels": [record, k2_record]}))
+    print(json.dumps({"kernels": [record, k2_record, *k3_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain twins (needs a CUDA
-device).
+"""Kernels K1, K2 and K3a-c on the card against their plain twins (needs a
+CUDA device).
 
 Marked `cuda`; skips on a host without a card. On a machine with one, and
 without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
@@ -7,7 +7,9 @@ without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
     TPU_DEER_TEST_TPU=1 python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Tolerances as between the reference's own front-end paths (float32 sums in
-another order); ZCR counts sign changes and must be equal.
+another order); ZCR counts sign changes and must be equal. K3: rtol 1e-4,
+atol 2e-5 (float32 FMAs in another order than the plain twin's cuBLAS
+GEMMs, over up to 300 keys).
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from tpu_deer_torch import stream as tstream
+from tpu_deer_torch.kernels import flash_attention as k3
 from tpu_deer_torch.kernels import mfcc_frames as k2
 from tpu_deer_torch.kernels.mfcc_signal import mfcc_signal, mfcc_signal_plain
 from tpu_deer_torch.models.deer_model import create_complete_deer_model
@@ -93,3 +96,61 @@ def test_stream_tick_launches_k2_once(device):
     for key in ref:
         np.testing.assert_allclose(got[key], ref[key], rtol=1e-4, atol=1e-5,
                                    err_msg=key)
+
+
+def _k3_case(device, b, h, tq, tk, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, h, tq, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, h, tk, d, generator=g) for _ in range(2))
+    mask = torch.ones(b, tk)
+    mask[0, tk // 3:] = 0.0  # a padding mask
+    mask[-1] = 0.0  # an all-masked element
+    return [x.to(device) for x in (q, k, v, mask, do)]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d", [(2, 4, 100, 100, 32),
+                                         (3, 2, 130, 300, 64),
+                                         (2, 2, 77, 45, 32)])
+def test_k3_matches_plain(device, b, h, tq, tk, d):
+    """Each kernel against its plain twin, and the autograd function
+    against the plain function's autograd gradients; ragged T, Tq != Tk,
+    an all-masked element."""
+    q, k, v, mask, do = _k3_case(device, b, h, tq, tk, d)
+    tol = dict(rtol=1e-4, atol=2e-5)
+    counts = lambda: (k3.flash_attention_fwd.launches,
+                      k3.flash_attention_bwd_dq.launches,
+                      k3.flash_attention_bwd_dkv.launches)
+    before = counts()
+    o, lse = k3.flash_attention_fwd(q, k, v, mask)
+    delta, dq = k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse)
+    dk, dv = k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    ro, rlse = k3.flash_attention_fwd_plain(q, k, v, mask)
+    rdelta, rdq = k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)
+    rdk, rdv = k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
+    for got, ref in ((o, ro), (lse, rlse), (delta, rdelta), (dq, rdq),
+                     (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got, ref, **tol)
+    assert not dq[-1].any() and not dk[-1].any()
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    (k3.flash_attention(*leaves, mask) * do).sum().backward()
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    (k3.flash_attention_plain(*plain, mask) * do).sum().backward()
+    for a, b_ in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b_.grad, **tol)
+    assert counts() == tuple(c + 2 for c in before)
+
+
+@pytest.mark.parametrize("bad", ["d48", "non_contiguous", "float16"])
+def test_k3_wrapper_raises(device, bad):
+    q, k, v, mask, _ = _k3_case(device, 1, 2, 64, 64, 48 if bad == "d48" else 32)
+    if bad == "non_contiguous":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "float16":
+        q, k, v = q.half(), k.half(), v.half()
+    before = k3.flash_attention_fwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        k3.flash_attention(q, k, v, mask)
+    assert k3.flash_attention_fwd.launches == before

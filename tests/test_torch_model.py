@@ -124,9 +124,9 @@ def test_unported_config_raises(kw):
         CompleteDEERModel(DEERModelConfig(**kw))
 
 
-def test_flash_attention_is_not_ported():
+def test_resolve_use_flash_dispatch():
+    """The flagship's length-1 attention stays on the dense branch; a long
+    key length or an explicit True takes the flash kernels (K3a-c)."""
     assert resolve_use_flash("auto", 1) is False
-    with pytest.raises(NotImplementedError, match="K3"):
-        resolve_use_flash("auto", 4096)
-    with pytest.raises(NotImplementedError, match="K3"):
-        resolve_use_flash(True, 1)
+    assert resolve_use_flash("auto", 4096) is True
+    assert resolve_use_flash(True, 1) is True

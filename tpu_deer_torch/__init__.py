@@ -9,9 +9,16 @@ follow the reference so each piece has an obvious counterpart:
   tpu_deer.ops.audio_frontend  → tpu_deer_torch.ops.audio_frontend
                                  + tpu_deer_torch.kernels.mfcc_signal (K1)
                                  + tpu_deer_torch.kernels.mfcc_frames (K2)
+  tpu_deer.ops.flash_attention → tpu_deer_torch.kernels.flash_attention
+                                 (K3a-c, forward and backward)
   tpu_deer.data.features       → tpu_deer_torch.data.features
-  tpu_deer.core.nig            → tpu_deer_torch.core.nig
+  tpu_deer.data.{vocab,audio_io,raw_corpus}
+                               → tpu_deer_torch.data.* (own copies; IEMOCAP
+                                 layout of the raw corpus)
+  tpu_deer.core.{nig,losses}   → tpu_deer_torch.core.*
+  tpu_deer.core.metrics        → tpu_deer_torch.core.metrics (numpy CCC)
   tpu_deer.models.*            → tpu_deer_torch.models.*
+  tpu_deer.train.raw_trainer   → tpu_deer_torch.train.raw_trainer
   tpu_deer.eval.ood            → tpu_deer_torch.eval.ood (own numpy copy)
   tpu_deer.serve               → tpu_deer_torch.serve
   tpu_deer.stream              → tpu_deer_torch.stream

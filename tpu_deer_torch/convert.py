@@ -1,103 +1,175 @@
 """Carry weights between the reference's flax parameter tree and the port.
 
-The flax tree comes in as a nested mapping of numpy arrays (e.g. the params
-of `tpu_deer.models.deer_model.create_complete_deer_model` passed through
-`np.asarray`); nothing here imports JAX. Names map segment by segment:
+The flax tree comes in as a nested mapping of numpy arrays (e.g. a model's
+params passed through `np.asarray`); nothing here imports JAX. Both
+directions are exact (transposes and copies only) for the flagship
+`CompleteDEERModel` and for `RawSequenceDEERModel`. Names map segment by
+segment:
 
   flax                                  torch state_dict
-  .../block_{i}/...                     .../blocks.{i}/...
-  deer_head_{name}/...                  heads.{name}/...
+  block_{i}                             blocks.{i}
+  deer_head_{name}                      heads.{name}
+  conv_{i}                              convs.{i}
   block_{i}/Dense_0, block_{i}/LayerNorm_0   blocks.{i}.dense, blocks.{i}.norm
-  Dense_{i} (estimator, weight network,
-             evidence network)          layers.{i}
+                                        (ResidualBlock)
+  LayerNorm_0, LayerNorm_1, MultiHeadAttention_0, MLP_0
+                                        norm1, norm2, attn, mlp
+                                        (TransformerBlock)
+  Conv_0, Conv_1, GroupNorm_0           conv1, conv2, group_norm (ConvBlock)
+  any other Dense_{i}                   layers.{i}
   */kernel [in, out]                    */weight [out, in]
-  */scale (LayerNorm)                   */weight
+  */kernel [k, in, out] (Conv over time)    */weight [out, in, k]
+  */kernel [kh, kw, in, out] (HWIO)     */weight [out, in, kh, kw] (OIHW)
+  */scale (LayerNorm, GroupNorm)        */weight
+  embed/embedding                       embed.weight
+  {fwd,bwd}_{l}/{ii,if,ig,io}/kernel    lstm.weight_ih_l{l}[_reverse] rows
+                                        i, f, g, o (each [H, in])
+  {fwd,bwd}_{l}/{hi,hf,hg,ho}/kernel    lstm.weight_hh_l{l}[_reverse]
+  {fwd,bwd}_{l}/{hi,hf,hg,ho}/bias      lstm.bias_hh_l{l}[_reverse]
+  (no leaf: flax's input kernels        lstm.bias_ih_l{l}[_reverse] = 0
+   carry no bias)
   calibration/cal{1,2,3}_{kernel,bias}, calibration/temperature
-                                        unchanged (same names and layout;
-                                        temperature stays pre-softplus)
+                                        unchanged
 
-Every other segment (input_proj, q_proj, av_fusion_in, ...) is the same on
-both sides.
+Every other segment (input_proj, q_proj, av_fusion_in, head_valence, ...)
+is the same on both sides.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Iterator
 
 import numpy as np
 import torch
 
-
-def _flatten(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple[tuple, np.ndarray]]:
-    for key, value in tree.items():
-        if isinstance(value, Mapping):
-            yield from _flatten(value, prefix + (key,))
-        else:
-            yield prefix + (key,), np.asarray(value)
-
-
-def _torch_key(path: tuple[str, ...]) -> tuple[str, bool]:
-    """flax path → (state_dict key, whether the leaf is transposed)."""
-    out = []
-    for i, seg in enumerate(path[:-1]):
-        parent = path[i - 1] if i else ""
-        if m := re.fullmatch(r"block_(\d+)", seg):
-            out += ["blocks", m.group(1)]
-        elif m := re.fullmatch(r"deer_head_(.+)", seg):
-            out += ["heads", m.group(1)]
-        elif m := re.fullmatch(r"Dense_(\d+)", seg):
-            out += ["dense"] if parent.startswith("block_") else ["layers", m.group(1)]
-        elif seg == "LayerNorm_0" and parent.startswith("block_"):
-            out.append("norm")
-        else:
-            out.append(seg)
-    leaf = path[-1]
-    transposed = leaf == "kernel"
-    out.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
-    return ".".join(out), transposed
+_GATES = ("i", "f", "g", "o")  # torch's LSTM row order, as flax's cell
+_LSTM_CELL = {f"{w}{g}" for w in "ih" for g in _GATES}
+_LSTM_KEY = re.compile(r"(?:(.*)\.)?lstm\.(weight_ih|weight_hh|bias_ih|bias_hh)"
+                       r"_l(\d+)(_reverse)?")
+_TRANSFORMER = {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
+                "MultiHeadAttention_0": "attn", "MLP_0": "mlp"}
+_CONV_BLOCK = {"Conv_0": "conv1", "Conv_1": "conv2", "GroupNorm_0": "group_norm"}
+_TO_FLAX = {v: k for k, v in {**_TRANSFORMER, **_CONV_BLOCK}.items()}
+_TO_FLAX["dense"] = "Dense_0"
+# Kernel layouts: flax → torch axes, by rank.
+_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
-def _flax_path(key: str, ndim: int) -> tuple[tuple[str, ...], bool]:
-    """state_dict key → (flax path, whether the leaf is transposed)."""
-    toks = key.split(".")
-    out, i = [], 0
-    while i < len(toks) - 1:
-        tok = toks[i]
-        if tok in ("blocks", "heads", "layers"):
-            nxt = toks[i + 1]
-            out.append({"blocks": f"block_{nxt}", "heads": f"deer_head_{nxt}",
-                        "layers": f"Dense_{nxt}"}[tok])
-            i += 2
-            continue
-        out.append({"dense": "Dense_0", "norm": "LayerNorm_0"}.get(tok, tok))
-        i += 1
-    leaf = toks[-1]
-    transposed = leaf == "weight" and ndim == 2
-    if leaf == "weight":
-        leaf = "kernel" if ndim == 2 else "scale"
-    return tuple(out) + (leaf,), transposed
+def _torch_segment(seg: str, parent: str, siblings) -> list[str]:
+    if m := re.fullmatch(r"block_(\d+)", seg):
+        return ["blocks", m.group(1)]
+    if m := re.fullmatch(r"deer_head_(.+)", seg):
+        return ["heads", m.group(1)]
+    if m := re.fullmatch(r"conv_(\d+)", seg):
+        return ["convs", m.group(1)]
+    if m := re.fullmatch(r"Dense_(\d+)", seg):
+        return ["dense"] if parent.startswith("block_") else ["layers", m.group(1)]
+    if "LayerNorm_1" in siblings and seg in _TRANSFORMER:
+        return [_TRANSFORMER[seg]]
+    if seg == "LayerNorm_0" and parent.startswith("block_"):
+        return ["norm"]
+    return [_CONV_BLOCK.get(seg, seg)]
+
+
+def _torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if name == "kernel":
+        return "weight", arr.transpose(_KERNEL_AXES[arr.ndim])
+    return {"scale": "weight", "embedding": "weight"}.get(name, name), arr
+
+
+def _lstm_cell(cell: Mapping, prefix: list[str], layer: str, reverse: bool,
+               out: dict) -> None:
+    """One flax OptimizedLSTMCell → nn.LSTM's four tensors of one layer and
+    direction."""
+    sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+    gates = lambda w, leaf: [np.asarray(cell[f"{w}{g}"][leaf]) for g in _GATES]
+    w_ih = np.concatenate([k.T for k in gates("i", "kernel")])
+    base = ".".join(prefix + ["lstm"])
+    out[f"{base}.weight_ih{sfx}"] = w_ih
+    out[f"{base}.weight_hh{sfx}"] = np.concatenate(
+        [k.T for k in gates("h", "kernel")])
+    out[f"{base}.bias_ih{sfx}"] = np.zeros(w_ih.shape[0], w_ih.dtype)
+    out[f"{base}.bias_hh{sfx}"] = np.concatenate(gates("h", "bias"))
 
 
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """Nested flax params (numpy leaves) → the port's state_dict."""
-    out = {}
-    for path, leaf in _flatten(params):
-        key, transposed = _torch_key(tuple(path))
-        arr = np.ascontiguousarray(leaf.T if transposed else leaf)
-        out[key] = torch.from_numpy(arr.copy())
-    return out
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping, parent: str, prefix: list[str]) -> None:
+        for key, value in node.items():
+            if not isinstance(value, Mapping):
+                name, arr = _torch_leaf(key, np.asarray(value))
+                out[".".join(prefix + [name])] = arr
+            elif (m := re.fullmatch(r"(fwd|bwd)_(\d+)", key)) and set(value) == _LSTM_CELL:
+                _lstm_cell(value, prefix, m.group(2), m.group(1) == "bwd", out)
+            else:
+                walk(value, key, prefix + _torch_segment(key, parent, node))
+
+    walk(params, "", [])
+    return {k: torch.from_numpy(np.ascontiguousarray(v).copy())
+            for k, v in out.items()}
+
+
+def _flax_path(key: str) -> tuple[str, ...]:
+    """A state_dict key (not an LSTM tensor) → its flax path."""
+    toks = key.split(".")
+    out, i = [], 0
+    while i < len(toks) - 1:
+        tok = toks[i]
+        if tok in ("blocks", "heads", "layers", "convs"):
+            nxt = toks[i + 1]
+            out.append({"blocks": f"block_{nxt}", "heads": f"deer_head_{nxt}",
+                        "layers": f"Dense_{nxt}", "convs": f"conv_{nxt}"}[tok])
+            i += 2
+            continue
+        if tok == "norm" and i >= 2 and toks[i - 2] == "blocks":
+            out.append("LayerNorm_0")  # ResidualBlock
+        else:
+            out.append(_TO_FLAX.get(tok, tok))
+        i += 1
+    return tuple(out) + (toks[-1],)
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The port's state_dict → nested flax params (numpy leaves)."""
+    """The port's state_dict → nested flax params (numpy leaves). Raises if
+    an LSTM input bias is not zero (flax's cell has no such parameter)."""
     tree: dict = {}
-    for key, tensor in state_dict.items():
-        arr = tensor.detach().cpu().numpy()
-        path, transposed = _flax_path(key, arr.ndim)
+
+    def put(path: tuple[str, ...], arr: np.ndarray) -> None:
         node = tree
         for seg in path[:-1]:
             node = node.setdefault(seg, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+        node[path[-1]] = np.ascontiguousarray(arr)
+
+    for key, tensor in state_dict.items():
+        arr = tensor.detach().cpu().numpy()
+        if m := _LSTM_KEY.fullmatch(key):
+            prefix, kind, layer, reverse = m.groups()
+            if kind == "bias_ih":
+                if np.any(arr):
+                    raise ValueError(f"{key} is not zero: flax's LSTM cell "
+                                     f"has no input bias")
+                continue
+            parent = _flax_path(prefix + ".x")[:-1] if prefix else ()
+            cell = parent + (f"{'bwd' if reverse else 'fwd'}_{layer}",)
+            w = "i" if kind == "weight_ih" else "h"
+            for g, part in zip(_GATES, np.split(arr, 4)):
+                if kind == "bias_hh":
+                    put(cell + (f"h{g}", "bias"), part)
+                else:
+                    put(cell + (f"{w}{g}", "kernel"), part.T)
+            continue
+        path = _flax_path(key)
+        leaf = path[-1]
+        if leaf == "weight":
+            if len(path) >= 2 and path[-2] == "embed":
+                leaf = "embedding"
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                arr = arr.transpose(np.argsort(_KERNEL_AXES[arr.ndim]))
+        put(path[:-1] + (leaf,), arr)
     return tree

@@ -1,8 +1,9 @@
-"""Normal-Inverse-Gamma (NIG) evidential math for serving.
+"""Normal-Inverse-Gamma (NIG) evidential math.
 
-Port of the inference half of `tpu_deer/core/nig.py`: the parameter
-constraints, the aleatoric/epistemic decomposition and the closed-form
-Student-t E|y - mu|. The losses and NLLs come with training.
+Port of `tpu_deer/core/nig.py`: the parameter constraints, the
+aleatoric/epistemic decomposition, the closed-form Student-t E|y - mu|, and
+the training half (the v1 and v2 NLLs, evidence regularizers and KL-style
+regularizers, all elementwise; reduce with a mean outside).
 """
 
 from __future__ import annotations
@@ -69,3 +70,63 @@ def nig_expected_abs_error(p: NIGParams) -> torch.Tensor:
         - torch.log(df - 1.0)
     )
     return scale * (2.0 / math.sqrt(math.pi) * torch.exp(log_mad))
+
+
+def nig_nll(p: NIGParams, targets: torch.Tensor) -> torch.Tensor:
+    """NIG negative log-likelihood, v1 form:
+    0.5 log(pi/nu) - alpha log(2 beta) + lgamma(alpha) - lgamma(alpha + 0.5)
+    + (alpha + 0.5) log(beta + nu (y - mu)^2 / 2)."""
+    sq_err = torch.square(targets - p.mu)
+    return (
+        0.5 * torch.log(math.pi / p.nu)
+        - p.alpha * torch.log(2.0 * p.beta)
+        + torch.lgamma(p.alpha)
+        - torch.lgamma(p.alpha + 0.5)
+        + (p.alpha + 0.5) * torch.log(p.beta + 0.5 * p.nu * sq_err)
+    )
+
+
+def nig_nll_v2(p: NIGParams, targets: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """NIG NLL, v2 form: -[0.5 log(nu / (2 pi + eps)) + alpha log(beta + eps)
+    - lgamma(alpha + eps) - (alpha + 0.5) log(beta + nu (y - mu)^2 / 2 + eps)]."""
+    err2 = torch.square(targets - p.mu)
+    log_prob = (
+        0.5 * torch.log(p.nu / (2.0 * math.pi + eps))
+        + p.alpha * torch.log(p.beta + eps)
+        - torch.lgamma(p.alpha + eps)
+        - (p.alpha + 0.5) * torch.log(p.beta + 0.5 * p.nu * err2 + eps)
+    )
+    return -log_prob
+
+
+def evidence_regularizer(p: NIGParams, targets: torch.Tensor) -> torch.Tensor:
+    """v1: (nu (y - mu)^2 + 2 beta (1 + nu)) / (2 nu (1 + nu))."""
+    sq_err = torch.square(targets - p.mu)
+    return (p.nu * sq_err + 2.0 * p.beta * (1.0 + p.nu)) / (
+        2.0 * p.nu * (1.0 + p.nu))
+
+
+def evidence_regularizer_v2(p: NIGParams, targets: torch.Tensor) -> torch.Tensor:
+    """v2: (y - mu)^2 (2 beta + nu (y - mu)^2)."""
+    err2 = torch.square(targets - p.mu)
+    return err2 * (2.0 * p.beta + p.nu * err2)
+
+
+def kl_regularizer(p: NIGParams) -> torch.Tensor:
+    """v1, clamped at 0: 0.5 (nu - 1) + alpha log(beta) - lgamma(alpha)
+    + lgamma(alpha + 0.5) - 0.5 log(2 pi beta)."""
+    kl = (
+        0.5 * (p.nu - 1.0)
+        + p.alpha * torch.log(p.beta)
+        - torch.lgamma(p.alpha)
+        + torch.lgamma(p.alpha + 0.5)
+        - 0.5 * torch.log(2.0 * math.pi * p.beta)
+    )
+    return torch.clamp(kl, min=0.0)
+
+
+def kl_regularizer_v2(p: NIGParams, eps: float = 1e-6) -> torch.Tensor:
+    """v2: (alpha - 1)^2 + 0.1 log(beta + eps)^2."""
+    return torch.square(p.alpha - 1.0) + 0.1 * torch.square(
+        torch.log(p.beta + eps))

@@ -1,10 +1,11 @@
 """Attention modules: MHA, per-modality uncertainty, uncertainty-aware attention.
 
-Port of `tpu_deer/models/attention.py` (MultiHeadAttention, the plain
-scaled-dot-product branch; UncertaintyEstimator; UncertaintyAwareAttention).
-The flagship model attends over sequences of length 1, so its attention is
-a handful of dense matmuls; the flash-attention kernel (K3) is for long
-sequences and is not ported yet.
+Port of `tpu_deer/models/attention.py` (MultiHeadAttention with its plain
+scaled-dot-product branch and its flash branch, kernels K3a-c;
+UncertaintyEstimator; UncertaintyAwareAttention). The flagship model
+attends over sequences of length 1, so its attention is a handful of dense
+matmuls; the raw model's text encoder takes the flash branch on long
+transcripts.
 """
 
 from __future__ import annotations
@@ -15,34 +16,33 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from tpu_deer_torch.kernels.flash_attention import flash_attention
 from tpu_deer_torch.models.layers import MLP
 
-# Key lengths at which use_flash="auto" picks the flash kernel, taken from
-# the reference's interface (tpu_deer/ops/flash_attention.py) so that both
-# packages dispatch alike. They have not been measured on the H100; that
-# comes with the port of K3.
+# Key lengths at which use_flash="auto" picks the flash kernels, kept equal
+# to the reference's so that both packages dispatch alike. chip_smoke.py
+# prints the H100 crossover against PyTorch's SDPA; it is not applied here.
 FLASH_AUTO_INFER_T = 2048
 FLASH_AUTO_TRAIN_T = 1024
 
 
 def resolve_use_flash(use_flash: Union[bool, str], t_k: int,
                       training: bool = False) -> bool:
-    """Resolve a bool | "auto" flag to a concrete choice. Flash attention
-    (K3) is not ported yet, so a flag that resolves to True raises."""
+    """Resolve a bool | "auto" flag to a concrete choice: "auto" takes the
+    flash kernels from a key length of FLASH_AUTO_TRAIN_T in training (a
+    gradient will flow) and FLASH_AUTO_INFER_T otherwise."""
     if use_flash == "auto":
-        chosen = t_k >= (FLASH_AUTO_TRAIN_T if training else FLASH_AUTO_INFER_T)
-    else:
-        chosen = bool(use_flash)
-    if chosen:
-        raise NotImplementedError(
-            f"flash attention (kernel K3) is not ported yet (t_k={t_k})"
-        )
-    return False
+        return t_k >= (FLASH_AUTO_TRAIN_T if training else FLASH_AUTO_INFER_T)
+    return bool(use_flash)
 
 
 class MultiHeadAttention(nn.Module):
     """Scaled-dot-product multi-head attention over [B, T, D], optional mask
-    (True = attend)."""
+    (True = attend; [B, 1, 1, Tk] or anything that broadcasts to the scores).
+
+    The flash branch (`resolve_use_flash`) hands the heads to kernels K3a-c
+    with the key mask as the reference builds it, and skips attention-prob
+    dropout, as the reference's flash branch does."""
 
     def __init__(self, feature_dim: int, num_heads: int = 8,
                  dropout: float = 0.1, use_flash: Union[bool, str] = "auto"):
@@ -64,7 +64,6 @@ class MultiHeadAttention(nn.Module):
         head_dim = self.feature_dim // self.num_heads
         b, tq, _ = query.shape
         tk = key.shape[1]
-        resolve_use_flash(self.use_flash, tk, training=self.training)
 
         def split_heads(x, t):
             return x.reshape(b, t, self.num_heads, head_dim).transpose(1, 2)
@@ -72,11 +71,19 @@ class MultiHeadAttention(nn.Module):
         q = split_heads(self.q_proj(query), tq)
         k = split_heads(self.k_proj(key), tk)
         v = split_heads(self.v_proj(value), tk)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
-        if mask is not None:
-            scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
-        attn = self.dropout(torch.softmax(scores, dim=-1))
-        out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+        if resolve_use_flash(self.use_flash, tk, training=self.training):
+            kv_mask = None
+            if mask is not None:
+                kv_mask = mask.reshape(b, -1, tk)[:, -1, :].to(torch.float32)
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), kv_mask)
+        else:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
+            if mask is not None:
+                scores = torch.where(mask, scores,
+                                     torch.finfo(scores.dtype).min)
+            attn = self.dropout(torch.softmax(scores, dim=-1))
+            out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         out = out.transpose(1, 2).reshape(b, tq, self.feature_dim)
         return self.out_proj(out)
 

@@ -1,4 +1,4 @@
-"""DEER prediction head and uncertainty calibration layer."""
+"""DEER prediction heads and the uncertainty calibration layer."""
 
 from __future__ import annotations
 
@@ -39,6 +39,36 @@ class DEERPredictionHead(nn.Module):
             "epistemic_uncertainty": unc["epistemic"],
             "uncertainty": unc["total"],
         }
+
+
+class MultiDimensionalDEER(nn.Module):
+    """Shared 2-layer feature processor (ReLU after both layers) + one DEER
+    head per emotion dimension, named `head_{dim}` as in the reference."""
+
+    def __init__(self, input_dim: int, hidden_dim: int = 256,
+                 dim_names=("valence", "arousal", "dominance"),
+                 dropout: float = 0.3):
+        super().__init__()
+        self.dim_names = tuple(dim_names)
+        self.feature_processor = MLP(input_dim, [hidden_dim, hidden_dim],
+                                     dropout=dropout, final_activation="relu")
+        for name in self.dim_names:
+            self.add_module(f"head_{name}",
+                            DEERPredictionHead(hidden_dim, hidden_dim, dropout))
+
+    def forward(self, x: torch.Tensor) -> dict:
+        h = self.feature_processor(x)
+        out: dict = {}
+        mus, totals = [], []
+        for name in self.dim_names:
+            head = getattr(self, f"head_{name}")(h)
+            for k, v in head.items():
+                out[f"{name}_{k}"] = v
+            mus.append(head["mu"])
+            totals.append(head["uncertainty"])
+        out["mu_all"] = torch.cat(mus, dim=-1)
+        out["uncertainty_all"] = torch.cat(totals, dim=-1)
+        return out
 
 
 # softplus(0.5413248) + 1e-3 ≈ 1: the calibration starts as the identity scale.

@@ -26,16 +26,34 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 def init_flax_style_(module: nn.Module,
                      generator: Optional[torch.Generator] = None) -> None:
-    """Every Linear gets flax's Dense defaults (lecun_normal kernel, zero
-    bias) and every LayerNorm ones/zeros, drawn from `generator`."""
+    """flax's default initializers, drawn from `generator`: Linear and Conv
+    kernels lecun_normal (fan_in = inputs × kernel taps) with zero bias;
+    LayerNorm and GroupNorm ones/zeros; Embedding normal with variance
+    1/features; LSTM input kernels lecun_normal and recurrent kernels
+    orthogonal per gate (flax's OptimizedLSTMCell), biases zero."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
                 lecun_normal_(m.weight, m.in_features, generator)
                 nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.LayerNorm):
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, 0.0, m.embedding_dim ** -0.5,
+                                generator=generator)
+            elif isinstance(m, nn.LSTM):
+                for name, p in m.named_parameters():
+                    if name.startswith("weight_ih"):
+                        lecun_normal_(p, p.shape[1], generator)
+                    elif name.startswith("weight_hh"):
+                        for gate in p.chunk(4):
+                            nn.init.orthogonal_(gate, generator=generator)
+                    else:
+                        nn.init.zeros_(p)
 
 
 class ResidualBlock(nn.Module):
@@ -53,13 +71,13 @@ class ResidualBlock(nn.Module):
 
 class MLP(nn.Module):
     """Linear stack with ReLU + dropout between layers; optional final
-    softmax (the reference's other final activations are not used by the
-    ported models)."""
+    ReLU or softmax (the reference's sigmoid is not used by the ported
+    models)."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  dropout: float = 0.0, final_activation: Optional[str] = None):
         super().__init__()
-        if final_activation not in (None, "softmax"):
+        if final_activation not in (None, "relu", "softmax"):
             raise ValueError(f"unsupported final_activation {final_activation!r}")
         dims = [in_features, *features]
         self.layers = nn.ModuleList(
@@ -73,6 +91,8 @@ class MLP(nn.Module):
             x = layer(x)
             if i < len(self.layers) - 1:
                 x = self.dropout(torch.relu(x))
-        if self.final_activation == "softmax":
+        if self.final_activation == "relu":
+            x = torch.relu(x)
+        elif self.final_activation == "softmax":
             x = torch.softmax(x, dim=-1)
         return x

@@ -14,9 +14,10 @@ tensor launches the kernel, a CPU tensor takes its plain twin, and
     the stream axis.
 
 Everything downstream (framing, deltas, F0 by autocorrelation, spectral
-centroid, RMS, ZCR, the 84-d vector) is plain tensor code over a batch
-dimension written out where the reference vmaps. The enhanced vector and
-the frame-feature matrix are not ported yet.
+centroid, RMS, ZCR, the 84-d utterance vector and the [N, 84] frame-feature
+matrix of the raw sequence model) is plain tensor code over a batch
+dimension written out where the reference vmaps. The enhanced vector is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -301,3 +302,37 @@ def extract_utterance_features(
 ) -> torch.Tensor:
     """signal [T] → 84-d feature vector (see _utterance_vec for the layout)."""
     return extract_utterance_features_batch(signal[None], cfg, plain=plain)[0]
+
+
+def _frame_feature_matrix(mfcc, logmel, power, timefeats,
+                          cfg: AudioFrontendConfig) -> torch.Tensor:
+    """[..., N, *] fused products → [..., N, 84] frame features: 13 MFCC,
+    13 Δ, 13 ΔΔ, F0, voiced, RMS, ZCR, centroid, rolloff, bandwidth and the
+    first 38 of the 40 log-mel bands."""
+    d1 = deltas(mfcc, cfg.delta_width)
+    d2 = deltas(d1, cfg.delta_width)
+    f0, voiced = f0_autocorrelation(power, cfg)
+    centroid, rolloff, bandwidth = spectral_summaries(power, cfg)
+    scalars = torch.stack([f0, voiced.to(torch.float32), timefeats[..., 0],
+                           timefeats[..., 1], centroid, rolloff, bandwidth],
+                          dim=-1)
+    return torch.cat([mfcc, d1, d2, scalars, logmel[..., :38]], dim=-1)
+
+
+def audio_frame_features_batch(
+    signals: torch.Tensor,
+    cfg: AudioFrontendConfig = AudioFrontendConfig(),
+) -> torch.Tensor:
+    """signals [B, T] → [B, N, 84] frame features, one K1 launch for the
+    batch. The front-end has no parameters, so nothing here needs a
+    gradient."""
+    with torch.no_grad():
+        return _frame_feature_matrix(*mfcc_from_signal(signals, cfg), cfg)
+
+
+def audio_frame_features(
+    signal: torch.Tensor,
+    cfg: AudioFrontendConfig = AudioFrontendConfig(),
+) -> torch.Tensor:
+    """signal [T] → frame-level features [N, 84] for the sequence encoder."""
+    return audio_frame_features_batch(signal[None], cfg)[0]
