@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, streaming and raw-media training
-paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, streaming, raw-media training and
+feature-level training-to-int8-serving paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,24 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               on every step and predict batch; step time, val CCC, a
               profiled step; the step time at the CLI's own 16 tokens (no
               K3); then 3 steps, each run with the kernels and with their
-              plain twins from the same state.
+              plain twins from the same seeded state;
+  9. K4     — the stochastic int8 quantizer against its plain twins at
+              [1, 1], [7, 13], [768, 512] and [4096, 4096], with the given
+              words and with Philox words: equal values and scale bits, a
+              seed repeats and another differs, the reference's bounds; its
+              time at [4096, 4096] beside the plain twins' and its bound;
+ 10. main   — the feature-level main path: `tpu_deer_torch.cli.main --mode
+              full --quick` at the flagship's width (3,918,324 params) with
+              every artifact checked; the best checkpoint served by
+              InferenceEngine.from_checkpoint in float and int8 (int8 vs
+              float, int8 vs the dequantized weights in float, int8 on the
+              card, predict p50 at 1-256), with K4's launches over both
+              (0: the engines round to nearest, as the reference's); K4
+              by direct calls of its public function on each of the
+              checkpoint's 44 Dense kernels, each held against the plain
+              twin (the launches the record reports: no entry point of
+              either package launches K4); and the headline recipe's step
+              (batch 4096, 131,072 rows, 64 steps) with a profiled step.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -69,7 +86,8 @@ import numpy as np
 SEED = 0
 SR = 16000
 N_UTTERANCES = 300
-KERNELS = ("mfcc_signal", "mfcc_frames", "flash_attention")  # csrc/<name>.cu
+KERNELS = ("mfcc_signal", "mfcc_frames", "flash_attention",
+           "quantize_int8")  # csrc/<name>.cu
 STREAMS = 256  # concurrent streams per tick (the shape of bench.py:281-283)
 TICKS = 8
 SERVER_SLOTS, CLIENTS, PUSHES = 64, 16, 4
@@ -105,6 +123,19 @@ GRAD_FLOOR, PARAM_ATOL = 1e-4, 1e-4
 K1_TOL = ((2e-3, 5e-3), (2e-4, 1e-3), (2e-4, 1e-3), (1e-4, 1e-5))
 # Features and predictions, kernel vs plain twin (rtol, atol).
 FEAT_TOL = (1e-4, 1e-5)
+K4_SHAPES = ((1, 1), (7, 13), (768, 512), (4096, 4096))  # [768, 512]: the
+# flagship's largest Dense kernel (fusion_gate); [4096, 4096] is timed.
+# K4's bounds, as tests/test_quantization.py:64-67 holds the reference:
+# values in [-127, 127] and |q·s - w| <= 1.01 s everywhere; |mean(q·s - w)|
+# <= 0.05 s where the mean has >= 4,096 terms (its standard deviation is at
+# most 0.5 s / sqrt(n), 0.0078 s there; the reference tests 8,192).
+K4_MEAN_MIN = 4096
+QUICK_ROWS = (512, 128, 128)  # cli.py --quick's synthetic splits, seed 42
+# The headline recipe's step (cli.py --recipe uncertainty: batch 4096) on
+# 131,072 synthetic training rows for 2 epochs (64 steps); fused epochs
+# (one lax.scan an epoch in the reference) are not ported.
+STEP_ROWS, STEP_EPOCHS = 131072, 2
+PREDICT_SIZES = (1, 8, 64, 256)
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -144,6 +175,28 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, calls=20):
+    """Device time per call of fn (ms): its kernels' and memsets' device
+    time under the profiler over `calls` calls. For kernels of tens of
+    microseconds, where time_ms also counts the gaps while the host
+    enqueues the next launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    if not total:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / calls
 
 
 def profile_window(torch, label, fn):
@@ -982,7 +1035,8 @@ def phase_train(torch, k1, k3):
     # Kernels against plain twins over 3 steps. Each step runs the plain
     # twins of K1 and K3 (patched in where the front-end and
     # MultiHeadAttention call the wrappers), then the kernels, from the same
-    # parameters, optimizer state, batch and dropout draws; the next step
+    # parameters, optimizer state, batch and dropout draws (the trainer's
+    # generator reseeded); the next step
     # starts from the kernel path's. Carried on separately, the two paths
     # part: an entry whose exact gradient is ~0 takes an Adam step of ±lr
     # on float noise, and the next steps' gradients differ by far more than
@@ -992,6 +1046,7 @@ def phase_train(torch, k1, k3):
     m = create_raw_sequence_model(seed=SEED + 1, device=DEVICE, **model_kw)
     t3 = RawSequenceTrainer(m, cfg, device=DEVICE)
     staged = t3._stage(tr)
+    clip = t3.optimizer.clip
 
     def one_step(batch, seed, plain):
         """(loss, clipped gradients, parameters after) of one step, its
@@ -999,20 +1054,29 @@ def phase_train(torch, k1, k3):
         if plain:
             attention.flash_attention = k3.flash_attention_plain
             taf.mfcc_signal = k1.mfcc_signal_plain
+        clipped = {}
+
+        def keep_clipped(grads):
+            clip(grads)
+            clipped.update((n, g.clone())
+                           for n, g in zip(t3.optimizer.params, grads))
+            return grads
+
+        t3.optimizer.clip = keep_clipped
         try:
-            torch.manual_seed(seed)
+            t3.generator.manual_seed(seed)  # the dropout draws
             before = read()
             loss = float(t3._train_step(batch))
             launched = [a - b for a, b in zip(read(), before)]
         finally:
             attention.flash_attention, taf.mfcc_signal = saved
+            t3.optimizer.clip = clip
         want = [0] * 4 if plain else [1, 2, 2, 2]
         if launched != want:
             raise AssertionError(f"{'plain' if plain else 'kernel'} step "
                                  f"launched K1, K3a-c {launched}, want {want}")
-        named = list(m.named_parameters())
-        return (loss, {n: p.grad.clone() for n, p in named if p.grad is not None},
-                {n: p.detach().clone() for n, p in named})
+        return (loss, clipped,
+                {n: p.detach().clone() for n, p in m.named_parameters()})
 
     rows = []
     for step in range(RAW_STEPS_COMPARED):
@@ -1049,6 +1113,301 @@ def phase_train(torch, k1, k3):
     return launches
 
 
+def k4_bounds(torch, q, s, w, label):
+    """The reference's bounds on K4's result (see K4_SHAPES)."""
+    err = q.to(torch.float32) * s - w
+    if q.dtype != torch.int8 or int(q.min()) < -127 or int(q.max()) > 127:
+        raise AssertionError(f"K4 {label}: values outside [-127, 127]")
+    scale = float(s.reshape(()))
+    worst = float(err.abs().max())
+    if worst > 1.01 * scale:
+        raise AssertionError(f"K4 {label}: |q·s - w| {worst:.3e} > 1.01 s")
+    mean = float(err.double().mean())
+    if w.numel() >= K4_MEAN_MIN and abs(mean) > 0.05 * scale:
+        raise AssertionError(f"K4 {label}: |mean(q·s - w)| {abs(mean):.3e} "
+                             f"> 0.05 s = {0.05 * scale:.3e}")
+    return worst / scale, mean / scale
+
+
+def k4_err(torch, got, ref, label):
+    """Raise unless K4's (q, scale) equals the plain twin's (values and the
+    scale's bits); return the largest difference, as floats."""
+    (q, s), (rq, rs) = got, ref
+    if not (torch.equal(q, rq) and torch.equal(s.view(torch.int32),
+                                               rs.view(torch.int32))):
+        raise AssertionError(f"K4 {label}: values or scale differ from the "
+                             f"plain twin")
+    return max(float((q.float() - rq.float()).abs().max()),
+               float((s - rs).abs().max()))
+
+
+def phase_k4(torch, k4):
+    """K4 against its plain twins on the card (DEVICE); returns its record."""
+    g = torch.Generator().manual_seed(SEED + 9)
+    seed = 2**40 + 12345  # both key words in use
+    max_err = 0.0
+    for shape in K4_SHAPES:
+        w = torch.randn(shape, generator=g).to(DEVICE)
+        bits = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                             generator=g).to(DEVICE)
+        before = (k4.quantize_int8_stochastic.launches,
+                  k4.quantize_int8_stochastic_bits.launches)
+        got = {"bits": k4.quantize_int8_stochastic_bits(w, bits),
+               "philox": k4.quantize_int8_stochastic(w, seed)}
+        torch.cuda.synchronize()
+        if (k4.quantize_int8_stochastic.launches,
+                k4.quantize_int8_stochastic_bits.launches) != (before[0] + 1,
+                                                               before[1] + 1):
+            raise AssertionError("a K4 wrapper did not count its launch")
+        refs = {"bits": k4.quantize_int8_stochastic_bits_plain(w, bits),
+                "philox": k4.quantize_int8_stochastic_plain(w, seed)}
+        for mode, (q, s) in got.items():
+            max_err = max(max_err, k4_err(torch, (q, s), refs[mode],
+                                          f"{mode} {shape}"))
+        q, s = got["philox"]
+        if not torch.equal(k4.quantize_int8_stochastic(w, seed)[0], q):
+            raise AssertionError(f"K4 {shape}: one seed did not repeat")
+        differs = not torch.equal(k4.quantize_int8_stochastic(w, seed + 1)[0], q)
+        if w.numel() >= 64 and not differs:
+            raise AssertionError(f"K4 {shape}: another seed gave the same values")
+        worst, mean = k4_bounds(torch, q, s, w, f"{shape}")
+        print(f"K4 vs plain {shape}: given words and Philox words equal "
+              f"(values and scale bits); seed repeats, another seed "
+              f"{'differs' if differs else 'gives the same values'}; max "
+              f"|q·s - w| {worst:.4f} s, mean {mean:+.2e} s")
+    n = w.numel()  # the last shape, [4096, 4096]
+    kernel_ms = time_ms(lambda: k4.quantize_int8_stochastic(w, seed))
+    bits_ms = time_ms(lambda: k4.quantize_int8_stochastic_bits(w, bits))
+    dev_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic(w, seed))
+    dev_bits_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic_bits(w, bits))
+    plain_ms = time_ms(lambda: k4.quantize_int8_stochastic_plain(w, seed))
+    plain_bits_ms = time_ms(lambda: k4.quantize_int8_stochastic_bits_plain(w, bits))
+    # Bytes: w read once, q written once (the bits variant reads 4 B more).
+    # Operations (abs, max, divide, add, floor, two clamps: 7 an element)
+    # take 7n / F32_FLOPS, far below; Philox's integer work is not counted.
+    t_bytes = 5 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 7 * n / F32_FLOPS * 1e3
+    print(f"K4 at {tuple(w.shape)}: kernel (Philox) {kernel_ms:.4f} ms, with "
+          f"given words {bits_ms:.4f} ms (a call between CUDA events, as K1-K3); "
+          f"device time {dev_ms:.4f} ms, with given words {dev_bits_ms:.4f} ms "
+          f"(K4a + K4b and the memset, profiler); plain twin {plain_ms:.4f} ms "
+          f"(Philox words in torch on the card), {plain_bits_ms:.4f} ms with "
+          f"given words; bound {max(t_bytes, t_ops):.4f} ms ({5 * n / 1e6:.1f} MB "
+          f"-> {t_bytes:.4f} ms; {9 * n / 1e6:.1f} MB with given words -> "
+          f"{9 * n / HBM_BYTES_PER_S * 1e3:.4f} ms); no PyTorch call computes "
+          f"it (torch.quantize_per_tensor rounds to nearest)")
+    return {
+        "name": "quantize_int8",
+        "route": "cuda",
+        "source": "tpu_deer_torch/kernels/csrc/quantize_int8.cu",
+        "replaces": "tpu_deer/ops/quantization.py:114",  # quantize_int8_stochastic
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def timed_steps(trainer_cls, steps, torch):
+    """Patch trainer_cls._train_step to append each step's host seconds
+    (to a synchronize) to steps; returns the original."""
+    step_fn = trainer_cls._train_step
+
+    def timed_step(self, *args, **kw):
+        t_start = time.perf_counter()
+        aux = step_fn(self, *args, **kw)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t_start)
+        return aux
+
+    trainer_cls._train_step = timed_step
+    return step_fn
+
+
+def predict_p50(engine, feats, n, reps=30):
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.predict(*(f[:n] for f in feats))
+        lat.append(time.perf_counter() - t0)
+    return float(np.median(lat)) * 1e3
+
+
+def phase_main(torch, k4):
+    """The feature-level main path: CLI quick run, int8 serving of its
+    checkpoint, K4 on its kernels, the headline step. Returns K4's launches
+    in (c) and its largest difference from the plain twin there."""
+    import tempfile
+
+    from tpu_deer_torch import cli
+    from tpu_deer_torch.data.pipeline import ArrayDataset
+    from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+    from tpu_deer_torch.models.deer_model import CompleteDEERModel
+    from tpu_deer_torch.ops import quantization as quant
+    from tpu_deer_torch.serve import InferenceEngine
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+    from tpu_deer_torch.train.trainer import DEERTrainer
+
+    platform = "auto" if DEVICE == "cuda" else DEVICE
+    with tempfile.TemporaryDirectory(prefix="main_path_") as out:
+        # (a) the CLI's quick run at the flagship's width.
+        k4.quantize_int8_stochastic.launches = 0
+        k4.quantize_int8_stochastic_bits.launches = 0
+        steps = []
+        step_fn = timed_steps(DEERTrainer, steps, torch)
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["--mode", "full", "--quick", "--output_dir", out,
+                           "--experiment_name", "quick", "--platform", platform])
+        finally:
+            DEERTrainer._train_step = step_fn
+        wall = time.perf_counter() - t0
+        exp = os.path.join(out, "quick")
+        need = ["configs/config.yaml", "results/final_report.md",
+                "results/ood_detector.npz", "models/best/state.pt",
+                "models/best/meta.json", "logs/metrics.jsonl"] + [
+            f"results/{n}.json" for n in ("training_history", "evaluation",
+                                          "conformal", "pipeline_summary")]
+        missing = [p for p in need if not os.path.exists(os.path.join(exp, p))]
+        if rc != 0 or missing:
+            raise AssertionError(f"cli --mode full --quick: rc {rc}, missing "
+                                 f"{missing}")
+        results = {}
+        for name in ("pipeline_summary", "evaluation", "conformal"):
+            with open(os.path.join(exp, "results", f"{name}.json")) as f:
+                results[name] = json.load(f)
+        summary, res = results["pipeline_summary"], results["evaluation"]["synthetic"]
+        conformal = results["conformal"]["synthetic"]["empirical_coverage"]
+        if res["n_parameters"] != 3_918_324 or res["n_samples"] != QUICK_ROWS[2] \
+                or summary["plots"] is not None or not all(
+                    math.isfinite(res[k]) for k in ("ccc_average", "ece")):
+            raise AssertionError(f"quick run: {res['n_parameters']} params, "
+                                 f"{res['n_samples']} test rows, bad metrics")
+        with open(os.path.join(exp, "results", "final_report.md")) as f:
+            if f"device: {DEVICE}" not in f.read():
+                raise AssertionError("the quick run did not run on the card")
+        print(f"main: cli --mode full --quick, {res['n_parameters']} params: "
+              f"{len(steps)} steps, step p50 {np.median(steps[1:]) * 1e3:.4f} ms "
+              f"(first {steps[0] * 1e3:.1f} ms; host clock to a synchronize), "
+              f"wall {wall:.2f} s; best val CCC {summary['best_val_ccc']:.4f}, "
+              f"test CCC {res['ccc_average']:.4f}, ECE {res['ece']:.4f}, "
+              f"conformal 90% coverage {'/'.join(f'{c:.3f}' for c in conformal)}, "
+              f"serving channel {summary['serving_channel']}")
+
+        # (b) the best checkpoint served in float and in int8.
+        models = os.path.join(exp, "models")
+        channel = CheckpointManager(models).metadata("best")["metrics"]["serving_channel"]
+        engines = {"float": InferenceEngine.from_checkpoint(models, device=DEVICE),
+                   "int8": InferenceEngine.from_checkpoint(
+                       models, quantize_weights=True, device=DEVICE)}
+        if any(e.serving_channel != channel for e in engines.values()):
+            raise AssertionError("the engines did not take the checkpoint's "
+                                 "serving channel")
+        test = make_synthetic_splits(SyntheticConfig(
+            n_train=QUICK_ROWS[0], n_val=QUICK_ROWS[1], n_test=QUICK_ROWS[2],
+            seed=42))["test"]
+        feats = [test[k] for k in ("audio", "video", "text")]
+        preds = {k: e.predict(*feats) for k, e in engines.items()}
+        mu_err = float(np.abs(preds["int8"]["mu"] - preds["float"]["mu"]).max())
+        if not mu_err <= 0.05:
+            raise AssertionError(f"int8 mu vs float mu {mu_err:.3e} > 0.05")
+        q, scales = engines["int8"].quantized_weights
+        kernels = [k for k, v in scales.items() if v.numel()]
+        if len(kernels) != 44 or any(q[k].dtype != torch.int8
+                                     or q[k].device.type != DEVICE for k in kernels):
+            raise AssertionError("the int8 engine's kernels are not int8 on "
+                                 "the card")
+        deq = CompleteDEERModel(engines["float"].model.config)
+        deq.load_state_dict(quant.dequantize_tree(q, scales))
+        deq_pred = InferenceEngine(deq, device=DEVICE).predict(*feats)
+        deq_err = max(check_close(f"int8 vs dequantized float {key}",
+                                  torch.from_numpy(preds["int8"][key]),
+                                  torch.from_numpy(v), *FEAT_TOL)
+                      for key, v in deq_pred.items())
+        float_bytes = sum(v.numel() * v.element_size()
+                          for v in engines["float"].model.state_dict().values())
+        int8_bytes = quant.quantized_size_bytes(q)
+        if not int8_bytes < 0.4 * float_bytes:
+            raise AssertionError(f"int8 weights {int8_bytes} B, float "
+                                 f"{float_bytes} B")
+        served = (k4.quantize_int8_stochastic.launches
+                  + k4.quantize_int8_stochastic_bits.launches)
+        print(f"main: K4 launches over (a) and (b): {served} (the engine's "
+              f"quantize_tree rounds to nearest on the host, as the "
+              f"reference's; no entry point of either package launches K4)")
+        print(f"main: served from the best checkpoint (channel {channel}): "
+              f"int8 vs float mu max abs diff {mu_err:.4e} (limit 0.05); int8 "
+              f"vs float on its dequantized weights {deq_err:.3e}; 44 int8 "
+              f"kernels on the card, {int8_bytes} B vs {float_bytes} B float "
+              f"({int8_bytes / float_bytes:.3f})")
+        big = [np.concatenate([f] * 2)[:max(PREDICT_SIZES)] for f in feats]
+        for n in PREDICT_SIZES:
+            print(f"main: predict {n}: float p50 "
+                  f"{predict_p50(engines['float'], big, n):.4f} ms, int8 p50 "
+                  f"{predict_p50(engines['int8'], big, n):.4f} ms (host clock, "
+                  f"30 requests)")
+
+        # (c) K4 by direct calls of its public function
+        # (ops.quantization.quantize_int8_stochastic, the reference's
+        # docs/API.md entry) on each Dense kernel of the checkpoint: the
+        # counted run, each result then held against the plain twin.
+        sd = CheckpointManager(models).restore_params("best")
+        dense = [k for k, v in sd.items() if quant.contraction_axis(k, v) is not None]
+        weights = [sd[k].to(DEVICE).contiguous() for k in dense]
+        k4.quantize_int8_stochastic.launches = 0
+        results = [quant.quantize_int8_stochastic(w, seed=i)
+                   for i, w in enumerate(weights)]
+        launches = k4.quantize_int8_stochastic.launches
+        if len(dense) != 44 or (DEVICE == "cuda" and launches != 44):
+            raise AssertionError(f"K4 on {len(dense)} kernels launched "
+                                 f"{launches} times")
+        worst = max(k4_bounds(torch, q_, s_, w, f"{k}")[0]
+                    for k, w, (q_, s_) in zip(dense, weights, results))
+        k4_max_err = max(k4_err(torch, got, quant.quantize_int8_stochastic_plain(
+            w, seed=i), k) for i, (k, w, got) in enumerate(zip(dense, weights,
+                                                               results)))
+        print(f"main: K4 by direct calls on the checkpoint's {len(dense)} "
+              f"Dense kernels ({sum(w.numel() for w in weights)} entries): "
+              f"{launches} launches, each equal to the plain twin (values "
+              f"and scale bits) and within the bounds (max |q·s - w| "
+              f"{worst:.4f} s)")
+        del weights, results, engines
+
+        # (d) the headline recipe's step at batch 4096.
+        pipe = cli.MultimodalDEERPipeline(
+            output_dir=out, experiment_name="step", recipe="uncertainty",
+            overrides={"training.fused_epochs": False,
+                       "training.num_epochs": STEP_EPOCHS}, device=DEVICE)
+        pipe.create_model()
+        splits = make_synthetic_splits(SyntheticConfig(
+            n_train=STEP_ROWS, n_val=4096, n_test=8, seed=42))
+        pipe.datasets = {s: {"synthetic": ArrayDataset(splits[s], "synthetic")}
+                         for s in ("train", "val")}
+        trainer = pipe.create_trainer()
+        steps = []
+        step_fn = timed_steps(DEERTrainer, steps, torch)
+        try:
+            trainer.train(pipe.datasets["train"], pipe.datasets["val"])
+        finally:
+            DEERTrainer._train_step = step_fn
+        staged = sum(v.numel() * v.element_size() for v in
+                     trainer._stage(pipe.datasets["train"]["synthetic"]).values())
+        bs = trainer.config.batch_size
+        print(f"main: recipe uncertainty step (batch {bs}, {STEP_ROWS} rows "
+              f"staged, {staged / 1e9:.2f} GB): {len(steps)} steps, p50 "
+              f"{np.median(steps[1:]) * 1e3:.4f} ms (first "
+              f"{steps[0] * 1e3:.1f} ms; host clock to a synchronize), "
+              f"{bs / np.median(steps[1:]):.0f} rows/s")
+        batch = trainer._batch_from_indices(pipe.datasets["train"]["synthetic"],
+                                            np.arange(bs))
+        profile_window(torch, f"train step at batch {bs}",
+                       lambda: trainer._train_step(batch, 1.0, 1.0))
+    return launches, k4_max_err
+
+
 def main() -> int:
     import torch
 
@@ -1062,6 +1421,7 @@ def main() -> int:
     from tpu_deer_torch.kernels import flash_attention as k3
     from tpu_deer_torch.kernels import mfcc_frames as k2
     from tpu_deer_torch.kernels import mfcc_signal as k1
+    from tpu_deer_torch.kernels import quantize_int8 as k4
     from tpu_deer_torch.models.deer_model import create_complete_deer_model
     from tpu_deer_torch.ops import audio_frontend as taf
 
@@ -1093,8 +1453,12 @@ def main() -> int:
     for k3_record, n in zip(k3_records, launches[1:]):
         k3_record["launches"] = n
 
+    k4_record = phase_k4(torch, k4)
+    k4_record["launches"], err = phase_main(torch, k4)
+    k4_record["max_abs_err"] = max(k4_record["max_abs_err"], err)
+
     print(card)
-    print(json.dumps({"kernels": [record, k2_record, *k3_records]}))
+    print(json.dumps({"kernels": [record, k2_record, *k3_records, k4_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Kernels K1, K2 and K3a-c on the card against their plain twins (needs a
-CUDA device).
+"""Kernels K1, K2, K3a-c and K4 on the card against their plain twins (needs
+a CUDA device).
 
 Marked `cuda`; skips on a host without a card. On a machine with one, and
 without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
@@ -9,7 +9,8 @@ without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
 Tolerances as between the reference's own front-end paths (float32 sums in
 another order); ZCR counts sign changes and must be equal. K3: rtol 1e-4,
 atol 2e-5 (float32 FMAs in another order than the plain twin's cuBLAS
-GEMMs, over up to 300 keys).
+GEMMs, over up to 300 keys). K4: equal int8 values and scale bits (the
+same words, IEEE division).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from tpu_deer_torch import stream as tstream
 from tpu_deer_torch.kernels import flash_attention as k3
 from tpu_deer_torch.kernels import mfcc_frames as k2
+from tpu_deer_torch.kernels import quantize_int8 as k4
 from tpu_deer_torch.kernels.mfcc_signal import mfcc_signal, mfcc_signal_plain
 from tpu_deer_torch.models.deer_model import create_complete_deer_model
 from tpu_deer_torch.ops import audio_frontend as taf
@@ -154,3 +156,31 @@ def test_k3_wrapper_raises(device, bad):
     with pytest.raises((TypeError, ValueError)):
         k3.flash_attention(q, k, v, mask)
     assert k3.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 13), (768, 512), (1001,)])
+def test_k4_matches_plain(device, shape):
+    """Both modes: the given words (bits) and Philox keyed by a 64-bit seed,
+    against the plain twins; a misaligned view takes the scalar path."""
+    g = torch.Generator().manual_seed(len(shape))
+    w = torch.randn(shape, generator=g).to(device)
+    bits = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                         generator=g).to(device)
+    before = (k4.quantize_int8_stochastic.launches,
+              k4.quantize_int8_stochastic_bits.launches)
+    got = [k4.quantize_int8_stochastic_bits(w, bits),
+           k4.quantize_int8_stochastic(w, seed=2**40 + 3)]
+    torch.cuda.synchronize()
+    assert (k4.quantize_int8_stochastic.launches,
+            k4.quantize_int8_stochastic_bits.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    refs = [k4.quantize_int8_stochastic_bits_plain(w, bits),
+            k4.quantize_int8_stochastic_plain(w, seed=2**40 + 3)]
+    for (q, s), (rq, rs) in zip(got, refs):
+        assert torch.equal(q, rq)
+        assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    if len(shape) == 1:
+        view = w[1:]  # 4 bytes past a 16-byte boundary
+        q, s = k4.quantize_int8_stochastic(view, seed=5)
+        rq, rs = k4.quantize_int8_stochastic_plain(view, seed=5)
+        assert torch.equal(q, rq) and torch.equal(s, rs)

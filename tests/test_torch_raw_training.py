@@ -197,18 +197,17 @@ def test_frozen_prefixes_and_clip():
     tt = RawSequenceTrainer(tm, cfg, device="cpu")
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     norms = []
-    clip = tt._clip_grads
+    clip = tt.optimizer.clip
 
-    def spy():
-        grads = [p.grad for p in tt._clipped if p.grad is not None]
+    def spy(grads):
         norms.append(float(torch.linalg.vector_norm(
             torch.stack([g.norm() for g in grads]))))
-        clip()
-        grads = [p.grad for p in tt._clipped if p.grad is not None]
+        clip(grads)
         norms.append(float(torch.linalg.vector_norm(
             torch.stack([g.norm() for g in grads]))))
+        return grads
 
-    tt._clip_grads = spy
+    tt.optimizer.clip = spy
     tt.train(splits["train"])
     after = tm.state_dict()
     for key, old in before.items():
@@ -270,6 +269,28 @@ def test_text_path_at_1024_takes_flash_and_matches_sdpa():
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_dropout_draws_follow_the_trainer_seed():
+    """Dropout on (the model's 0.1): two runs with one trainer seed give
+    identical parameters after 2 steps whatever the global RNG holds;
+    another trainer seed gives others."""
+    _, (splits, vocab), _ = _corpora()
+    torch.manual_seed(0)
+    init = RawSequenceDEERModel(vocab_size=vocab.vocab_size, **WIDTH).state_dict()
+    params = []
+    for seed, global_seed in ((0, 1), (0, 2), (1, 1)):
+        torch.manual_seed(global_seed)
+        tm = RawSequenceDEERModel(vocab_size=vocab.vocab_size, **WIDTH)
+        tm.load_state_dict(init)
+        tt = RawSequenceTrainer(tm, RawTrainingConfig(**TRAIN, seed=seed),
+                                device="cpu")
+        staged = tt._stage(splits["train"])
+        for step in range(2):
+            tt._train_step(tt._gather(staged, np.arange(4 * step, 4 * step + 4)))
+        params.append(tm.state_dict())
+    assert all(torch.equal(params[0][k], params[1][k]) for k in init)
+    assert not all(torch.equal(params[0][k], params[2][k]) for k in init)
 
 
 def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):

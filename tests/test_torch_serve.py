@@ -146,7 +146,7 @@ def test_entry_points_default_to_cuda(entry):
         call()
 
 
-@pytest.mark.parametrize("kw", [dict(quantize_weights=True),
+@pytest.mark.parametrize("kw", [dict(quantize_weights=True, ensemble=True),
                                 dict(ensemble=True)])
 def test_unported_serving_options_raise(kw):
     with pytest.raises(NotImplementedError):

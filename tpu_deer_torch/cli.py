@@ -1,0 +1,509 @@
+"""Command-line pipeline on the card: full / train / evaluate / test modes.
+
+Port of `tpu_deer/cli.py`:
+
+    python -m tpu_deer_torch.cli --mode full --quick
+    python -m tpu_deer_torch.cli --mode train --config configs/config.yaml
+    python -m tpu_deer_torch.cli --mode evaluate --model_path <models dir>
+    python -m tpu_deer_torch.cli --mode full --quick --platform cpu
+
+`--platform auto` (the default) and `cuda` run on the CUDA card and raise
+without one; `cpu` runs on the CPU. Width comes from the config, as in the
+reference: `--mode full --quick` trains the flagship (3,918,324 params) on
+the 512/128/128-row synthetic fixture, batch 32, 8 epochs.
+
+Not ported yet, and raising NotImplementedError: plots (`--mode visualize`;
+`--mode full` writes `"plots": null`), `--mode export`, `--raw`,
+`--ensemble`, and the corpus loaders (a configured dataset path that exists
+on disk). The export flags (`--int8`, `--ood_detector`, `--ood_fpr`),
+`--raw_dataset` and the unused `--results_dir` are not taken. Where the
+reference's default paths (`/path/to/...`) do not exist, the pipeline takes
+the synthetic fixture, as the reference does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpu_deer_torch.device import DeviceLike, resolve_device
+
+logger = logging.getLogger("tpu_deer_torch.cli")
+
+# Named training recipes applied over the base YAML (the reference's; a
+# sibling file configs/uncertainty.yaml carries the same values). Order:
+# YAML -> recipe -> --quick -> explicit flags.
+RECIPES = {
+    "uncertainty": {
+        "model": {"dropout": 0.05},
+        "training": {
+            "learning_rate": 1.2e-3,
+            "batch_size": 4096,
+            "num_epochs": 100,
+            "warmup_epochs": 5,
+            "scheduler": "cosine",
+            "kl_weight": 0.01,
+            "calibration_alignment_weight": 0.15,
+            "val_frequency": 10,
+            "early_stopping_patience": 10**6,
+            "fused_epochs": True,
+        },
+    },
+}
+
+PLATFORMS = {"auto": None, "cuda": "cuda", "cpu": "cpu"}
+
+
+class MultimodalDEERPipeline:
+    """Experiment orchestration: model, data, trainer, training, evaluation
+    and the report, in one experiment directory."""
+
+    def __init__(self, config_path: Optional[str] = None,
+                 output_dir: str = "experiments",
+                 experiment_name: Optional[str] = None,
+                 overrides: Optional[dict] = None, quick: bool = False,
+                 resume: bool = False, recipe: Optional[str] = None,
+                 device: DeviceLike = None):
+        from tpu_deer_torch.utils.config import load_yaml_config, save_yaml_config
+
+        self.device = resolve_device(device)
+        self.quick = quick
+        self.resume = resume
+        self.config = load_yaml_config(config_path)
+        if recipe is not None:
+            if recipe not in RECIPES:
+                raise ValueError(
+                    f"unknown recipe {recipe!r}; available: {sorted(RECIPES)}")
+            for section, values in RECIPES[recipe].items():
+                self.config.setdefault(section, {}).update(values)
+            self.config["recipe"] = recipe
+        if quick:
+            # Small but learnable; undo a recipe's fused epochs and sparse
+            # validation.
+            self.config["training"].update(
+                num_epochs=8, batch_size=32, learning_rate=3e-3,
+                warmup_epochs=1, scheduler="constant", fused_epochs=False,
+                val_frequency=1)
+        for key, value in (overrides or {}).items():
+            section, _, name = key.partition(".")
+            if name:
+                self.config[section][name] = value
+
+        if experiment_name is None:
+            experiment_name = time.strftime("experiment_%Y%m%d_%H%M%S")
+        self.experiment_dir = os.path.join(output_dir, experiment_name)
+        for sub in ("models", "plots", "logs", "results", "configs", "data"):
+            os.makedirs(os.path.join(self.experiment_dir, sub), exist_ok=True)
+        save_yaml_config(self.config,
+                         os.path.join(self.experiment_dir, "configs", "config.yaml"))
+
+        self.seed = int(self.config["training"].get("seed", 42))
+        self.model = None
+        self.trainer = None
+        self.datasets = None
+
+    def path(self, *parts) -> str:
+        return os.path.join(self.experiment_dir, *parts)
+
+    # -- components ------------------------------------------------------
+    def create_model(self):
+        from tpu_deer_torch.models.deer_model import (
+            DEERModelConfig,
+            count_parameters,
+            create_complete_deer_model,
+        )
+
+        m = self.config["model"]
+        self.model_config = DEERModelConfig(
+            audio_dim=int(m["audio_dim"]),
+            video_dim=int(m["video_dim"]),
+            text_dim=int(m["text_dim"]),
+            encoder_dim=int(m.get("encoder_dim", 256)),
+            fusion_dim=int(m["fusion_dim"]),
+            emotion_dims=int(m["emotion_dims"]),
+            attention_heads=int(m["attention_heads"]),
+            encoder_layers=int(m.get("encoder_layers", 3)),
+            dropout=float(m["dropout"]),
+            compute_dtype=self.config["hardware"].get("compute_dtype", "float32"),
+            fusion_type=str(m.get("fusion_type", "hierarchical")),
+            moe_experts=int(m.get("moe_experts", 4)),
+        )
+        if int(self.config["training"].get("ensemble_members", 1)) > 1:
+            raise NotImplementedError(
+                "deep ensembles are not ported yet (ROADMAP queue 1, item 12)")
+        self.model = create_complete_deer_model(self.model_config, seed=self.seed,
+                                                device=self.device)
+        logger.info(f"model created: {count_parameters(self.model):,} parameters")
+        return self.model
+
+    def create_datasets(self):
+        """The synthetic fixture. A configured corpus path that exists on
+        disk raises: the corpus loaders are not ported."""
+        from tpu_deer_torch.data.pipeline import ArrayDataset
+        from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+
+        ds = self.config.get("datasets", {})
+        paths = ds.get("paths", {})
+        found = [n for n in ds.get("names", []) if paths.get(n)
+                 and os.path.isdir(paths[n])]
+        if found:
+            raise NotImplementedError(
+                f"the corpus loaders are not ported yet (ROADMAP queue 1, item "
+                f"8); configured paths exist for {found}")
+        logger.warning("no real dataset paths found — using the synthetic "
+                       "fixture (set datasets.paths in the config to train on "
+                       "real data)")
+        m = self.config["model"]
+        n_train, n_val, n_test = (512, 128, 128) if self.quick else (1000, 200, 200)
+        splits = make_synthetic_splits(SyntheticConfig(
+            n_train=n_train, n_val=n_val, n_test=n_test,
+            audio_dim=int(m["audio_dim"]), video_dim=int(m["video_dim"]),
+            text_dim=int(m["text_dim"]), seed=self.seed))
+        self.text_backends = {"synthetic": "precomputed-synthetic"}
+        self.datasets = {split: {"synthetic": ArrayDataset(splits[split], "synthetic")}
+                         for split in ("train", "val", "test")}
+        return self.datasets
+
+    def create_trainer(self):
+        from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
+
+        t = self.config["training"]
+        weights = {k.lower(): float(v)
+                   for k, v in self.config["datasets"].get("weights", {}).items()}
+        self.training_config = TrainingConfig(
+            learning_rate=float(t["learning_rate"]),
+            weight_decay=float(t.get("weight_decay", 1e-5)),
+            gradient_clip=float(t.get("gradient_clip", 1.0)),
+            batch_size=int(t["batch_size"]),
+            num_epochs=int(t["num_epochs"]),
+            scheduler=t.get("scheduler", "cosine"),
+            warmup_epochs=int(t.get("warmup_epochs", 5)),
+            early_stopping_patience=int(t.get("early_stopping_patience", 10)),
+            dataset_weights=weights or {"synthetic": 1.0},
+            curriculum_learning=bool(t.get("curriculum_learning", True)),
+            val_frequency=int(t.get("val_frequency", 1)),
+            save_frequency=int(t.get("save_frequency", 10)),
+            evidence_weight=float(t.get("evidence_weight", 1.0)),
+            kl_weight=float(t.get("kl_weight", 0.1)),
+            loss_variant=str(t.get("loss_variant", "v2")),
+            calibration_alignment_weight=float(
+                t.get("calibration_alignment_weight", 0.05)),
+            fused_epochs=bool(t.get("fused_epochs", False)),
+            aleatoric_moment_weight=float(t.get("aleatoric_moment_weight", 0.0)),
+            grad_accum_steps=int(t.get("grad_accum_steps", 1)),
+            param_sharding=t.get("param_sharding", "tp"),
+            spike_backoff=bool(t.get("spike_backoff", True)),
+            spike_rollback=bool(t.get("spike_rollback", True)),
+            ema_decay=float(t.get("ema_decay", 0.0)),
+            ema_eval=bool(t.get("ema_eval", False)),
+            seed=self.seed,
+        )
+        steps = sum(len(d) // self.training_config.batch_size
+                    for d in self.datasets["train"].values())
+        self.trainer = DEERTrainer(self.model, self.training_config,
+                                   steps_per_epoch=max(1, steps),
+                                   device=self.device)
+        return self.trainer
+
+    # -- stages ----------------------------------------------------------
+    def run_training(self) -> dict:
+        from tpu_deer_torch.train.checkpoint import CheckpointManager
+        from tpu_deer_torch.utils.logging import MetricWriter
+
+        writer = MetricWriter(self.path("logs"))
+        try:
+            results = self.trainer.train(
+                self.datasets["train"], self.datasets["val"], logger=writer,
+                checkpoints=CheckpointManager(self.path("models")),
+                resume=self.resume)
+        finally:
+            writer.close()
+        history = {k: v for k, v in results.items() if k != "trainer"}
+        with open(self.path("results", "training_history.json"), "w") as f:
+            json.dump(history, f, indent=2, default=float)
+        return results
+
+    def run_evaluation(self) -> dict:
+        from tpu_deer_torch.eval.evaluator import DEERModelEvaluator
+        from tpu_deer_torch.models.deer_model import count_parameters
+
+        test_sets = self.datasets.get("test") or self.datasets["val"]
+        evaluator = DEERModelEvaluator(n_bootstrap=200, seed=self.seed)
+        all_results = {}
+        for name, ds in test_sets.items():
+            res = evaluator.evaluate_model(
+                self.trainer, ds, n_parameters=count_parameters(self.trainer.model))
+            all_results[name] = res.to_dict()
+            logger.info(f"[{name}] CCC avg {res.ccc_average:.4f} "
+                        f"MAE avg {res.mae_average:.4f} ECE {res.ece:.4f}")
+        with open(self.path("results", "evaluation.json"), "w") as f:
+            json.dump(all_results, f, indent=2)
+        self._write_conformal_report(test_sets)
+        self._write_ood_detector()
+        return all_results
+
+    def _write_ood_detector(self, max_fit_rows: int = 16384) -> None:
+        """Fit the input_norm Mahalanobis OOD detector on the train split
+        (20% held out for its threshold when there are >= 256 rows) and
+        save it as results/ood_detector.npz."""
+        from tpu_deer_torch.eval.ood import MahalanobisOOD, input_norm_features
+
+        train_sets = self.datasets.get("train") or {}
+        if not train_sets:
+            return
+        feats = []
+        for ds in train_sets.values():
+            arrays = ds.arrays
+            if len(ds) > max_fit_rows:
+                idx = np.sort(np.random.default_rng(0).choice(
+                    len(ds), max_fit_rows, replace=False))
+                arrays = ds.slice(idx)
+            feats.append(input_norm_features(arrays["audio"], arrays["video"],
+                                             arrays["text"]))
+        x = np.concatenate(feats)
+        det = MahalanobisOOD(space="input_norm")
+        if len(x) >= 256:
+            perm = np.random.default_rng(1).permutation(len(x))
+            n_cal = len(x) // 5
+            det.fit(x[perm[n_cal:]]).calibrate(x[perm[:n_cal]])
+        else:
+            det.fit(x)
+        det.save(self.path("results", "ood_detector.npz"))
+        logger.info("OOD detector fitted on %d input_norm rows (threshold@1%%fpr "
+                    "%.1f) -> results/ood_detector.npz", len(x), det.threshold(0.01))
+
+    def _write_conformal_report(self, test_sets) -> None:
+        """Split-conformal 90% intervals: quantiles fitted on the val split,
+        coverage and width on the test split (results/conformal.json)."""
+        from tpu_deer_torch.eval.conformal import ConformalCalibrator
+
+        val_sets = self.datasets.get("val") or {}
+        report = {}
+        for name, test_ds in test_sets.items():
+            cal_ds = val_sets.get(name) or next(iter(val_sets.values()), None)
+            if cal_ds is None or cal_ds is test_ds:
+                continue
+            pc = self.trainer.predict(cal_ds)
+            pt = self.trainer.predict(test_ds)
+            cal = ConformalCalibrator(alpha=0.1, normalized=True).fit(
+                pc["mu"], np.sqrt(np.maximum(pc["uncertainty"], 1e-12)),
+                cal_ds.arrays["labels"])
+            report[name] = cal.report(
+                pt["mu"], np.sqrt(np.maximum(pt["uncertainty"], 1e-12)),
+                test_ds.arrays["labels"])
+            cov = report[name]["empirical_coverage"]
+            logger.info(f"[{name}] conformal 90% intervals: coverage "
+                        + "/".join(f"{c:.3f}" for c in cov))
+        if report:
+            with open(self.path("results", "conformal.json"), "w") as f:
+                json.dump(report, f, indent=2)
+
+    def run_visualization(self) -> dict:
+        raise NotImplementedError(
+            "plots are not ported yet (ROADMAP queue 1, item 14)")
+
+    def generate_final_report(self, train_results, eval_results) -> str:
+        lines = [
+            "# Multimodal DEER — Experiment Report",
+            "",
+            f"- experiment dir: `{self.experiment_dir}`",
+            f"- device: {self.device}",
+            f"- quick mode: {self.quick}",
+            f"- epochs run: {train_results.get('epochs_run')}",
+            f"- training time: {train_results.get('training_time_s', 0):.1f}s",
+            f"- best val CCC: {train_results.get('best_val_ccc', float('nan')):.4f}",
+            "- serving channel (selected by validation ECE): "
+            f"{train_results.get('serving_channel', 'eabs')}",
+            "- text backend: " + (", ".join(
+                f"{k}={v}" for k, v in getattr(self, "text_backends", {}).items())
+                or "unknown"),
+            "",
+            "## Test results",
+            "",
+            "| dataset | CCC avg | CCC V | CCC A | CCC D | MAE avg | ECE |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for name, res in eval_results.items():
+            ccc = res["ccc"]
+            lines.append(
+                f"| {name} | {res['ccc_average']:.4f} | {ccc.get('valence', 0):.4f} "
+                f"| {ccc.get('arousal', 0):.4f} | {ccc.get('dominance', 0):.4f} "
+                f"| {res['mae_average']:.4f} | {res['ece']:.4f} |")
+        path = self.path("results", "final_report.md")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return path
+
+    def run_full_pipeline(self) -> dict:
+        t0 = time.time()
+        try:
+            self.create_model()
+            self.create_datasets()
+            self.create_trainer()
+            train_results = self.run_training()
+            eval_results = self.run_evaluation()
+            logger.info("plots are not ported yet: the summary records "
+                        "\"plots\": null")
+            report = self.generate_final_report(train_results, eval_results)
+        except Exception as e:
+            # Write the crash report, then re-raise.
+            import traceback
+
+            with open(self.path("results", "error_report.json"), "w") as f:
+                json.dump({"error": str(e), "type": type(e).__name__,
+                           "traceback": traceback.format_exc(),
+                           "elapsed_s": time.time() - t0}, f, indent=2)
+            raise
+        summary = {
+            "experiment_dir": self.experiment_dir,
+            "best_val_ccc": train_results["best_val_ccc"],
+            "serving_channel": train_results.get("serving_channel", "eabs"),
+            "test_results": eval_results,
+            "text_backend": getattr(self, "text_backends", {}),
+            "plots": None,
+            "report": report,
+            "total_time_s": time.time() - t0,
+        }
+        with open(self.path("results", "pipeline_summary.json"), "w") as f:
+            json.dump(summary, f, indent=2, default=float)
+        return summary
+
+    def load_checkpoint(self, model_path: str) -> None:
+        from tpu_deer_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(model_path)
+        step = "best" if os.path.isdir(os.path.join(model_path, "best")) else None
+        self.trainer.load_state_dict(ckpt.restore(step, map_location=self.device))
+        logger.info(f"restored checkpoint from {model_path}")
+
+
+def run_component_tests(device: DeviceLike = None) -> bool:
+    """--mode test: model forward, DEER loss and NIG math on `device`. The
+    reference's visualization check is skipped: plots are not ported."""
+    from tpu_deer_torch.core import losses, nig
+    from tpu_deer_torch.models.deer_model import (
+        DEERModelConfig,
+        create_complete_deer_model,
+    )
+
+    ok = True
+    try:
+        device = resolve_device(device)
+        model = create_complete_deer_model(
+            DEERModelConfig(encoder_dim=64, fusion_dim=128, encoder_layers=1),
+            seed=0, device=device)
+        zeros = lambda d: torch.zeros((2, d), device=device)
+        with torch.no_grad():
+            out = model(zeros(84), zeros(256), zeros(768))
+        assert out["mu_all"].shape == (2, 3)
+        print("model forward: OK")
+
+        ps = [out[f"{n}_params"] for n in ("valence", "arousal", "dominance")]
+        loss = losses.multi_task_deer_loss(ps, torch.zeros((2, 3), device=device))
+        assert bool(torch.isfinite(loss["total_loss"]))
+        print("DEER loss: OK")
+
+        p = nig.nig_params_from_evidence(torch.zeros((2, 3, 4), device=device))
+        u = nig.nig_uncertainties(p)
+        assert bool(torch.all(u["total"] > 0))
+        print("NIG math: OK")
+        print("visualization: skipped (plots are not ported)")
+    except Exception as e:  # noqa: BLE001 — reported as the mode's failure
+        print(f"component test FAILED: {e!r}")
+        ok = False
+    return ok
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Multimodal DEER pipeline on a "
+                                            "CUDA card (PyTorch port)")
+    p.add_argument("--mode", choices=["full", "train", "evaluate", "visualize",
+                                      "test", "export"], default="full")
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--output_dir", type=str, default="experiments")
+    p.add_argument("--experiment_name", type=str, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--learning_rate", type=float, default=None)
+    p.add_argument("--model_path", type=str, default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in the experiment's "
+                        "models/ dir (same --output_dir and --experiment_name)")
+    p.add_argument("--quick", action="store_true",
+                   help="8 epochs, batch size 32, lr 3e-3, small learnable "
+                        "synthetic data")
+    p.add_argument("--recipe", choices=sorted(RECIPES), default=None,
+                   help="named config preset applied over the base config "
+                        "(explicit flags still win); same values as "
+                        "configs/uncertainty.yaml")
+    p.add_argument("--raw", action="store_true",
+                   help="raw-media training (not ported to this CLI yet)")
+    p.add_argument("--ensemble", type=int, default=None, metavar="K",
+                   help="a K-member deep ensemble (not ported yet)")
+    p.add_argument("--platform", choices=sorted(PLATFORMS), default="auto",
+                   help="'auto' and 'cuda': the CUDA card, raising without "
+                        "one; 'cpu': the CPU")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
+                        format="%(levelname)s %(name)s: %(message)s")
+    unported = {
+        "--mode visualize (plots; ROADMAP queue 1, item 14)": args.mode == "visualize",
+        "--mode export (ROADMAP queue 1, item 9)": args.mode == "export",
+        "--raw (ROADMAP queue 1, item 6)": args.raw,
+        "--ensemble (ROADMAP queue 1, item 12)": args.ensemble is not None,
+    }
+    for what, given in unported.items():
+        if given:
+            raise NotImplementedError(f"{what} is not ported yet")
+    device = resolve_device(PLATFORMS[args.platform])
+    logger.info("device: %s", device)
+
+    if args.mode == "test":
+        return 0 if run_component_tests(device) else 1
+
+    overrides = {}
+    if args.epochs is not None:
+        overrides["training.num_epochs"] = args.epochs
+    if args.batch_size is not None:
+        overrides["training.batch_size"] = args.batch_size
+    if args.learning_rate is not None:
+        overrides["training.learning_rate"] = args.learning_rate
+
+    pipeline = MultimodalDEERPipeline(
+        config_path=args.config, output_dir=args.output_dir,
+        experiment_name=args.experiment_name, overrides=overrides,
+        quick=args.quick, resume=args.resume, recipe=args.recipe, device=device)
+
+    if args.mode == "full":
+        summary = pipeline.run_full_pipeline()
+        print(json.dumps({"best_val_ccc": summary["best_val_ccc"],
+                          "experiment_dir": summary["experiment_dir"]}, indent=2))
+        return 0
+    pipeline.create_model()
+    pipeline.create_datasets()
+    pipeline.create_trainer()
+    if args.mode == "train":
+        results = pipeline.run_training()
+        print(f"best val CCC: {results['best_val_ccc']:.4f}")
+    else:  # evaluate
+        if args.model_path:
+            pipeline.load_checkpoint(args.model_path)
+        print(json.dumps(pipeline.run_evaluation(), indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

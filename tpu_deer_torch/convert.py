@@ -132,6 +132,36 @@ def _flax_path(key: str) -> tuple[str, ...]:
     return tuple(out) + (toks[-1],)
 
 
+def flax_leaf(key: str, ndim: int) -> str:
+    """The flax leaf name of state_dict entry `key` of rank `ndim` (not an
+    LSTM tensor): "kernel" for a Linear or conv weight, "embedding",
+    "scale" for a norm's weight; other names are unchanged."""
+    path = _flax_path(key)
+    if path[-1] != "weight":
+        return path[-1]
+    if len(path) >= 2 and path[-2] == "embed":
+        return "embedding"
+    return "scale" if ndim == 1 else "kernel"
+
+
+def flax_quantized_to_state_dict(q_tree: Mapping, scale_tree: Mapping
+                                 ) -> tuple[dict, dict]:
+    """The reference's `quantize_tree` output (q_tree, scale_tree) → the
+    port's (q state_dict, scale state_dict): int8 kernels transposed to the
+    state_dict's layout, per-output-channel scales [out], the empty scale
+    of a leaf that is not quantized unchanged. Flagship leaves (no LSTM)."""
+    def as_row(node: Mapping) -> dict:
+        # A "kernel" scale [out] as [1, out], so the kernel transpose makes
+        # it [out, 1]; an empty scale [0] as [1, 0].
+        return {k: as_row(v) if isinstance(v, Mapping)
+                else np.asarray(v).reshape(1, -1) if k == "kernel"
+                else np.asarray(v) for k, v in node.items()}
+
+    scales = flax_to_state_dict(as_row(scale_tree))
+    return (flax_to_state_dict(q_tree),
+            {k: v.reshape(-1) for k, v in scales.items()})
+
+
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The port's state_dict → nested flax params (numpy leaves). Raises if
     an LSTM input bias is not zero (flax's cell has no such parameter)."""
@@ -162,14 +192,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
                     put(cell + (f"{w}{g}", "kernel"), part.T)
             continue
         path = _flax_path(key)
-        leaf = path[-1]
-        if leaf == "weight":
-            if len(path) >= 2 and path[-2] == "embed":
-                leaf = "embedding"
-            elif arr.ndim == 1:
-                leaf = "scale"
-            else:
-                leaf = "kernel"
-                arr = arr.transpose(np.argsort(_KERNEL_AXES[arr.ndim]))
+        leaf = flax_leaf(key, arr.ndim)
+        if leaf == "kernel":
+            arr = arr.transpose(np.argsort(_KERNEL_AXES[arr.ndim]))
         put(path[:-1] + (leaf,), arr)
     return tree

@@ -1,9 +1,8 @@
 """DEER training losses.
 
-Port of `tpu_deer/core/losses.py` for the raw trainer: `DEERLossConfig`,
-`binned_ece_loss`, `deer_loss` (v1 and v2) and `multi_task_deer_loss`. The
-uncertainty regularization, calibration and combined losses are not ported
-yet.
+Port of `tpu_deer/core/losses.py`: `DEERLossConfig`, `binned_ece_loss`,
+`deer_loss` (v1 and v2), `multi_task_deer_loss`, and the uncertainty
+regularization, reliability-diagram calibration and combined losses.
 """
 
 from __future__ import annotations
@@ -117,4 +116,70 @@ def multi_task_deer_loss(
         out["cross_dim_loss"] = consistency
 
     out["total_loss"] = total / n
+    return out
+
+
+def uncertainty_regularization_loss(p: NIGParams, diversity_weight: float = 0.1,
+                                    sparsity_weight: float = 0.01) -> dict:
+    """Diversity (-log of the batch variance of u) and sparsity (mean u)
+    regularizers of u = beta / (alpha - 1)."""
+    uncertainty = p.beta / (p.alpha - 1.0 + EPS)
+    diversity = -torch.log(torch.mean(torch.var(uncertainty, dim=0,
+                                                correction=0)) + EPS)
+    sparsity = torch.mean(uncertainty)
+    return {"reg_loss": diversity_weight * diversity + sparsity_weight * sparsity,
+            "diversity_loss": diversity, "sparsity_loss": sparsity}
+
+
+def calibration_loss(p: NIGParams, targets: torch.Tensor, n_bins: int = 15,
+                     bin_strategy: str = "uniform",
+                     max_error: float = 2.0) -> torch.Tensor:
+    """Reliability-diagram calibration loss: accuracy 1 - clip(|err| /
+    max_error, 0, 1), confidence 1 / (1 + u), bins uniform over [0, 1] or
+    at confidence quantiles; the last bin includes its upper edge."""
+    targets = torch.broadcast_to(targets.reshape(targets.shape[0], -1),
+                                 p.mu.shape)
+    errors = torch.abs(targets - p.mu).reshape(-1)
+    uncertainty = p.beta / (p.alpha - 1.0 + EPS)
+    confidence = (1.0 / (1.0 + uncertainty)).reshape(-1)
+    accuracy = 1.0 - torch.clamp(errors / max_error, 0.0, 1.0)
+    grid = torch.linspace(0.0, 1.0, n_bins + 1, device=confidence.device)
+    edges = grid if bin_strategy == "uniform" else torch.quantile(confidence, grid)
+    lower = confidence[None, :] >= edges[:-1, None]
+    upper = confidence[None, :] < edges[1:, None]
+    last = torch.arange(n_bins, device=confidence.device)[:, None] == n_bins - 1
+    upper = torch.where(last, confidence[None, :] <= edges[1:, None], upper)
+    in_bin = (lower & upper).to(confidence.dtype)
+    counts = in_bin.sum(dim=1)
+    safe = torch.clamp(counts, min=1.0)
+    avg_conf = (in_bin * confidence[None, :]).sum(dim=1) / safe
+    avg_acc = (in_bin * accuracy[None, :]).sum(dim=1) / safe
+    weights = counts / confidence.shape[0]
+    per_bin = torch.where(counts > 0, torch.abs(avg_conf - avg_acc), 0.0)
+    return torch.sum(weights * per_bin)
+
+
+def combined_deer_loss(
+    params_per_dim: Sequence[NIGParams],
+    targets: torch.Tensor,
+    config: DEERLossConfig = DEERLossConfig(),
+    task_weights: Optional[Sequence[float]] = None,
+    cross_dim_weight: float = 0.05,
+    uncertainty_reg_weight: float = 1.0,
+    calibration_weight: float = 0.1,
+) -> dict:
+    """Multi-task DEER loss + uncertainty regularization + calibration loss
+    over the dimensions stacked along the last axis."""
+    out = multi_task_deer_loss(params_per_dim, targets, config, task_weights,
+                               cross_dim_weight)
+    total = out["total_loss"]
+    stacked = NIGParams(*(torch.cat([getattr(p, f) for p in params_per_dim],
+                                    dim=-1)
+                          for f in ("mu", "nu", "alpha", "beta")))
+    unc_reg = uncertainty_regularization_loss(stacked)
+    out["uncertainty_reg_loss"] = unc_reg["reg_loss"]
+    total = total + uncertainty_reg_weight * unc_reg["reg_loss"]
+    cal = calibration_loss(stacked, targets)
+    out["calibration_loss"] = cal
+    out["total_loss"] = total + calibration_weight * cal
     return out

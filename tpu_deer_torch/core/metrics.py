@@ -1,7 +1,12 @@
-"""Host-side metrics in numpy (own copy of the reference's `ccc_np` and
-`pearson_np` in `tpu_deer/core/metrics.py`), for the trainer's val CCC."""
+"""Host-side metrics in numpy: own copy of the reference's `ccc_np`,
+`pearson_np`, `reliability_np`, `ece_np` and `evaluate_predictions`
+(`tpu_deer/core/metrics.py`), for the trainers' validation and the
+evaluator. The jnp metrics and the significance tests are not ported yet.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -34,3 +39,89 @@ def pearson_np(a: np.ndarray, b: np.ndarray) -> float:
     denom = a.std() * b.std()
     return (float(((a - a.mean()) * (b - b.mean())).mean() / denom)
             if denom > EPS else 0.0)
+
+
+def reliability_np(predictions: np.ndarray, targets: np.ndarray,
+                   uncertainties: np.ndarray, n_bins: int = 10) -> dict:
+    """Reliability-curve data with uncertainty-quantile bins, confidence
+    1 - u and accuracy 1 - |err| (the definition `ece_np` reports).
+    Returns {bin_confidence, bin_accuracy, bin_count, ece}."""
+    errors = np.abs(np.asarray(predictions) - np.asarray(targets))
+    unc = np.asarray(uncertainties, dtype=np.float64)
+    if errors.ndim > 1:
+        errors = errors.mean(axis=tuple(range(1, errors.ndim)))
+        unc = unc.mean(axis=tuple(range(1, unc.ndim)))
+    errors = errors.ravel()
+    unc = unc.ravel()
+    mask = np.isfinite(errors) & np.isfinite(unc)
+    empty = {"bin_confidence": [], "bin_accuracy": [], "bin_count": [],
+             "ece": 1.0}
+    if mask.sum() < n_bins:
+        return empty
+    errors, unc = errors[mask], unc[mask]
+    edges = np.quantile(unc, np.linspace(0, 1, n_bins + 1))
+    edges[0] = 0.0
+    edges[-1] = unc.max() + 1e-6
+    ece = 0.0
+    total = len(errors)
+    bin_conf, bin_acc, bin_count = [], [], []
+    for i in range(n_bins):
+        sel = (unc >= edges[i]) & (unc < edges[i + 1])
+        if sel.sum() == 0:
+            continue
+        avg_conf = 1.0 - unc[sel].mean()
+        avg_acc = 1.0 - errors[sel].mean()
+        ece += (sel.sum() / total) * abs(avg_conf - avg_acc)
+        bin_conf.append(float(avg_conf))
+        bin_acc.append(float(avg_acc))
+        bin_count.append(int(sel.sum()))
+    return {"bin_confidence": bin_conf, "bin_accuracy": bin_acc,
+            "bin_count": bin_count, "ece": float(ece)}
+
+
+def ece_np(predictions: np.ndarray, targets: np.ndarray,
+           uncertainties: np.ndarray, n_bins: int = 10) -> float:
+    return reliability_np(predictions, targets, uncertainties, n_bins)["ece"]
+
+
+def evaluate_predictions(
+    predictions: np.ndarray,
+    targets: np.ndarray,
+    uncertainties: Optional[np.ndarray] = None,
+    dim_names: tuple[str, ...] = ("valence", "arousal", "dominance"),
+) -> dict[str, float]:
+    """Per-dimension CCC, MAE and RMSE with their averages; with
+    uncertainties also ECE and the uncertainty-error correlation."""
+    predictions = np.asarray(predictions)
+    targets = np.asarray(targets)
+    if predictions.ndim == 1:
+        predictions = predictions[:, None]
+        targets = targets[:, None]
+
+    results: dict[str, float] = {}
+    cccs, maes, rmses = [], [], []
+    for i, name in enumerate(dim_names[: predictions.shape[1]]):
+        t, p = targets[:, i], predictions[:, i]
+        valid = np.isfinite(t) & np.isfinite(p)
+        err = np.abs(t[valid] - p[valid])
+        ccc = ccc_np(t, p)
+        mae = float(err.mean()) if err.size else float("inf")
+        rmse = float(np.sqrt((err**2).mean())) if err.size else float("inf")
+        results[f"ccc_{name}"] = ccc
+        results[f"mae_{name}"] = mae
+        results[f"rmse_{name}"] = rmse
+        cccs.append(ccc)
+        maes.append(mae)
+        rmses.append(rmse)
+    results["ccc_average"] = float(np.mean(cccs))
+    results["mae_average"] = float(np.mean(maes))
+    results["rmse_average"] = float(np.mean(rmses))
+
+    if uncertainties is not None:
+        results["ece"] = ece_np(predictions, targets, uncertainties)
+        err = np.abs(predictions - targets).mean(axis=1)
+        unc = np.asarray(uncertainties)
+        if unc.ndim > 1:
+            unc = unc.mean(axis=1)
+        results["uncertainty_error_correlation"] = pearson_np(err, unc)
+    return results

@@ -1,25 +1,32 @@
 """Batched inference engine for serving the flagship model.
 
-Port of `tpu_deer/serve.py` (float path): requests are padded up to the
-nearest batch bucket (1, 8, 64, 256 by default), requests beyond the largest
-bucket are chunked, the model runs in eval mode under inference_mode on its
-device, and the result is VAD predictions with calibrated uncertainty, the
+Port of `tpu_deer/serve.py`: requests are padded up to the nearest batch
+bucket (1, 8, 64, 256 by default), requests beyond the largest bucket are
+chunked, the model runs in eval mode under inference_mode on its device, and
+the result is VAD predictions with calibrated uncertainty, the
 aleatoric/epistemic decomposition and the closed-form E|y - mu|.
 
 With an OOD detector (`tpu_deer_torch.eval.ood.MahalanobisOOD`) every
 prediction also carries `ood_score`, computed on the device in the
 detector's feature space, and `is_ood` at its threshold.
 
-int8 weights, ensembles and loading from a checkpoint are not ported yet
-and raise NotImplementedError.
+`quantize_weights=True` serves int8 weights: `ops.quantization.quantize_tree`
+quantizes the Dense kernels per output channel, they stay int8 on the
+device, and each forward dequantizes them (q · scale, plain torch, as the
+reference's `dequantize_tree_device` inside its jitted forward) into the
+weights `torch.func.functional_call` runs the model with; the engine keeps
+no float copy of them. `from_checkpoint` loads a trainer's checkpoint and
+serves the channel its metadata selected. Ensembles are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from tpu_deer_torch.core.nig import nig_expected_abs_error
 from tpu_deer_torch.device import DeviceLike, resolve_device
@@ -27,7 +34,8 @@ from tpu_deer_torch.eval.ood import (
     input_norm_features_device,
     mahalanobis_score_device,
 )
-from tpu_deer_torch.models.deer_model import CompleteDEERModel
+from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
+from tpu_deer_torch.ops.quantization import dequantize_tree_device, quantize_tree
 
 DEFAULT_BUCKETS = (1, 8, 64, 256)
 
@@ -81,11 +89,12 @@ class InferenceEngine:
         the training-free default). ood_detector: a fitted MahalanobisOOD,
         scored in its own space ("input_norm": the normalized inputs,
         "fused": the model's fused features); is_ood flags scores above its
-        threshold at the training false-positive rate `ood_fpr`."""
-        if quantize_weights:
-            raise NotImplementedError("int8 serving is not ported yet")
+        threshold at the training false-positive rate `ood_fpr`.
+        quantize_weights: serve int8 Dense kernels (the module's own weights
+        are then not moved or kept)."""
         if ensemble:
-            raise NotImplementedError("ensemble serving is not ported yet")
+            raise NotImplementedError(
+                "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
         if serving_channel not in ("calibrated", "eabs"):
             raise ValueError(
                 f"serving_channel must be 'calibrated' or 'eabs', "
@@ -93,7 +102,20 @@ class InferenceEngine:
             )
         self.serving_channel = serving_channel
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.quantized = bool(quantize_weights)
+        self.quantized_weights = None
+        if self.quantized:
+            q, scales = quantize_tree(model.state_dict())
+            self.quantized_weights = (
+                {k: v.to(self.device) for k, v in q.items()},
+                {k: v.to(self.device) for k, v in scales.items()})
+            # The module's structure without weights: every forward passes
+            # the dequantized ones.
+            with torch.device("meta"):
+                model = CompleteDEERModel(model.config)
+            self.model = model.eval()
+        else:
+            self.model = model.to(self.device).eval()
         self.buckets = sorted(batch_buckets)
         self._ood = None
         self._ood_threshold = None
@@ -104,11 +126,32 @@ class InferenceEngine:
             self._ood_space = ood_detector.space
 
     @classmethod
-    def from_checkpoint(cls, checkpoint_dir: str, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet")
+    def from_checkpoint(cls, checkpoint_dir: str,
+                        config: Optional[DEERModelConfig] = None, step="best",
+                        ensemble_members: int = 1, **kwargs) -> "InferenceEngine":
+        """Serve the parameters of a DEERTrainer checkpoint (step "best", None
+        for the latest, or a number) with the serving channel its metadata
+        recorded ("eabs" where it recorded none)."""
+        from tpu_deer_torch.train.checkpoint import CheckpointManager
+
+        if ensemble_members > 1:
+            raise NotImplementedError(
+                "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
+        model = CompleteDEERModel(config or DEERModelConfig())
+        ckpt = CheckpointManager(checkpoint_dir)
+        model.load_state_dict(ckpt.restore_params(step))
+        if "serving_channel" not in kwargs:
+            kwargs["serving_channel"] = ckpt.metadata(step)["metrics"].get(
+                "serving_channel", "eabs")
+        return cls(model, **kwargs)
 
     def _forward(self, audio, video, text) -> dict[str, torch.Tensor]:
-        out = self.model(audio, video, text)
+        if self.quantized:
+            out = functional_call(
+                self.model, dequantize_tree_device(*self.quantized_weights),
+                (audio, video, text))
+        else:
+            out = self.model(audio, video, text)
         names = self.model.config.dim_names
         cat = lambda key: torch.cat([out[f"{n}_{key}"] for n in names], dim=-1)
         res = {

@@ -13,11 +13,13 @@ As in the reference: the data are staged on the device once and a step
 gathers its rows there; the batch order is a host permutation drawn from
 `np.random.default_rng(seed)`, and `train` drops the tail that does not
 fill a batch; `predict` pads its last batch with `np.resize` and unpads the
-outputs. The clip follows `optax.clip_by_global_norm` (scale by
-max_norm / norm only when norm > max_norm, the norm over every gradient,
-frozen parameters included), and the optimizer is optax's `adamw` defaults
-(b1 0.9, b2 0.999, eps 1e-8 outside the square root, decoupled weight
-decay `weight_decay` on every trained parameter).
+outputs. The clip and the optimizer are the reference's optax chain,
+`optax.clip_by_global_norm` then `adamw` at a constant rate
+(`train/optim.py:AdamW`, which DEERTrainer shares): the clip's norm is over
+every gradient, frozen parameters included.
+
+Dropout draws from the trainer's own generator, seeded from `config.seed`
+(`train/rng.py:seeded_dropout`), so two runs with one seed repeat.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from tpu_deer_torch.ops.audio_frontend import (
     AudioFrontendConfig,
     audio_frame_features_batch,
 )
+from tpu_deer_torch.train.optim import AdamW
+from tpu_deer_torch.train.rng import seeded_dropout
 
 BATCH_KEYS = ("signal", "video_frames", "token_ids", "token_mask", "labels")
 
@@ -72,15 +76,17 @@ class RawSequenceTrainer:
         self.config = config
         self.frontend_config = frontend_config
         self.loss_config = loss_lib.DEERLossConfig(variant=config.loss_variant)
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        self._clipped = [p for _, p in named]
-        trained = [p for n, p in named
-                   if not any(n.startswith(f) for f in config.frozen_prefixes)]
-        self.optimizer = torch.optim.AdamW(
-            trained, lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=config.weight_decay)
+        self._params = {n: p for n, p in model.named_parameters()
+                        if p.requires_grad}
+        trained = [n for n in self._params
+                   if not n.startswith(tuple(config.frozen_prefixes))]
+        self.optimizer = AdamW(self._params, {"trained": (1.0, trained)},
+                               lambda count: config.learning_rate,
+                               config.weight_decay, config.gradient_clip)
         self.history: dict[str, list] = {"train_loss": [], "val_ccc": []}
         self._staged: dict[int, dict] = {}
+        # Dropout draws (seeded_dropout), one seed a step.
+        self.generator = torch.Generator().manual_seed(config.seed)
 
     # -- steps -------------------------------------------------------------
     def _forward(self, batch: dict) -> dict:
@@ -89,26 +95,15 @@ class RawSequenceTrainer:
         return self.model(frames, batch["video_frames"], batch["token_ids"],
                           batch["token_mask"])
 
-    def _clip_grads(self) -> None:
-        grads = [p.grad for p in self._clipped if p.grad is not None]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        max_norm = self.config.gradient_clip
-        scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                            max_norm / norm)
-        for g in grads:
-            g.mul_(scale)
-
     def _train_step(self, batch: dict) -> torch.Tensor:
         self.model.train()
-        out = self._forward(batch)
+        with seeded_dropout(self.generator, self.device):
+            out = self._forward(batch)
         params = [out[f"{n}_params"] for n in self.model.dim_names]
         loss = loss_lib.multi_task_deer_loss(params, batch["labels"],
                                              self.loss_config)["total_loss"]
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self._clip_grads()
-        self.optimizer.step()
+        self.optimizer.step(torch.autograd.grad(
+            loss, list(self._params.values()), allow_unused=True))
         return loss.detach()
 
     # -- data --------------------------------------------------------------
