@@ -30,12 +30,19 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               detector: 16 clients × 4 /stream/push plus /predict requests,
               responses held against a direct StreamingRecognizer run and a
               direct predict; then tick and push latency and a profile;
-  7. K3     — the flash-attention kernels (K3a forward, K3b dq, K3c dk/dv)
-              against their plain twins at B·H = 8, T = 100, D = 32 and at
-              D = 64, each with an all-masked element, and at the training
-              shape B = 64, H = 4, T = 2048, D = 32 with a padding mask; their
-              times beside their bounds, the plain twins and PyTorch's SDPA;
-              the K3-vs-SDPA crossover over T ∈ {512, 1024, 2048, 4096};
+  7. K3     — the flash-attention kernels (K3a forward, K3b dq, K3c dk/dv):
+              the count of tensor-core (HGMMA) and cp.async (LDGSTS)
+              instructions in each backward kernel's SASS; all six outputs
+              against their plain twins at B·H = 8, T = 100, D = 32, at
+              D = 64, with a hole of whole 64-key tiles (keys 64-191),
+              ragged Tq = 130 != Tk = 300 and live key tiles past the
+              first 32 (Tk = 2200), each at D = 32 and 64 with an
+              all-masked element, and at the training shape B = 64, H = 4,
+              T = 2048, D = 32 under two masks (prefix lengths in [T/8, T];
+              4-16 valid keys, phase 8's padding), with the share of live
+              key tiles; their times beside their 3xTF32 bounds (float32
+              FMA bounds printed beside), the plain twins and PyTorch's SDPA;
+              the K3-vs-SDPA crossover over T in {512, 1024, 2048, 4096};
   8. train  — RawSequenceTrainer on a 768/96/96-utterance IEMOCAP-layout
               fixture (seed 42, transcripts padded to 2,048 tokens) at the
               CLI's full width: 24 steps (lr 2e-3, batch 64, 2 epochs) and
@@ -43,7 +50,8 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               on every step and predict batch; step time, val CCC, a
               profiled step; the step time at the CLI's own 16 tokens (no
               K3); then 3 steps, each run with the kernels and with their
-              plain twins from the same seeded state;
+              plain twins from the same seeded state, and the first kernel
+              step twice, naming the gradients whose bits vary by run;
   9. K4     — the stochastic int8 quantizer against its plain twins at
               [1, 1], [7, 13], [768, 512] and [4096, 4096], with the given
               words and with Philox words: equal values and scale bits, a
@@ -94,11 +102,12 @@ SERVER_SLOTS, CLIENTS, PUSHES = 64, 16, 4
 DEVICE = "cuda"  # phases 4-6 and 8 (a CPU rehearsal sets "cpu")
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-TF32_FLOPS = 495e12  # H100 SXM dense TF32 (informational: 3xTF32 floor)
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 (K3's bound: 3xTF32)
 # K3 against its plain twin (rtol, atol): float32 FMAs in another order than
 # cuBLAS's over up to 2,048 keys; lse and δ are sums of the same kind.
 K3_TOL = (1e-4, 5e-5)
 K3_SHAPE = (64, 4, 2048, 32)  # B, H, T, D of the training step's text layers
+CROSSOVER_T = (512, 1024, 2048, 4096)  # K3 vs SDPA at B = 16, H = 4, D = 32
 RAW_FIXTURE = (768, 96, 96)  # cli.py --raw, non-quick
 RAW_BATCH = 64  # cli.py --raw, non-quick
 # Transcripts padded to 2,048 tokens so that both train (>= 1024) and predict
@@ -756,12 +765,65 @@ def ood_detector(rng):
     return MahalanobisOOD().fit_modalities(audio, video, text)
 
 
-def k3_case(torch, b, h, t, d, lengths, seed):
-    """(q, k, v, mask, dO) on the card; lengths[i] valid keys in element i."""
+def k3_case(torch, b, h, tq, tk, d, mask, seed):
+    """(q, k, v, mask, dO) on the card for a [b, tk] key mask (1 = valid)."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(b, h, t, d, generator=g) for _ in range(4))
-    mask = (torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None])
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g) for n in (tq, tk, tk, tq))
     return [x.cuda() for x in (q, k, v, mask.to(torch.float32), do)]
+
+
+def prefix_mask(torch, lengths, t):
+    """[len(lengths), t]: lengths[i] valid keys at the start of element i."""
+    return (torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]).float()
+
+
+def hole_mask(torch, b, t):
+    """[b, t]: element 0 with keys 64-191 masked (whole 64-key tiles between
+    valid keys), element 1 with a prefix of 2t/3 valid keys, the rest
+    all-masked."""
+    mask = torch.zeros(b, t)
+    mask[0] = 1.0
+    mask[0, 64:192] = 0.0
+    mask[1, :2 * t // 3] = 1.0
+    return mask
+
+
+def far_mask(torch, b, t):
+    """[b, t]: element 0 with valid keys 10-19 and 2100-2149 only (live
+    tiles on both sides of the 32-tile window K3b reads at a time),
+    element 1 all valid, the rest all-masked."""
+    mask = torch.zeros(b, t)
+    mask[0, 10:20] = 1.0
+    mask[0, 2100:2150] = 1.0
+    mask[1] = 1.0
+    return mask
+
+
+def live_tile_share(torch, mask, tile=64):
+    """The share of 64-key tiles (per element) that hold a valid key."""
+    b, t = mask.shape
+    pad = torch.zeros(b, -(-t // tile) * tile, device=mask.device)
+    pad[:, :t] = mask
+    return (pad.view(b, -1, tile) > 0).any(-1).float().mean().item()
+
+
+def sass_counts(build, lib_name):
+    """{kernel function: {instruction: count}} of HGMMA (wgmma) and LDGSTS
+    (cp.async) in the built library's SASS (cuobjdump)."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build._target(lib_name))],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "LDGSTS": 0}
+        elif fn:
+            for op in counts[fn]:
+                if f" {op}." in line:
+                    counts[fn][op] += 1
+    return counts
 
 
 def k3_work(b, h, t, d, lengths):
@@ -779,120 +841,173 @@ def k3_work(b, h, t, d, lengths):
             "dkv": (8 * base, 4 * rows + 2 * kv + 2 * stats + mask)}  # q k v dO lse δ → dk dv
 
 
-def phase_k3(torch, k3):
+def check_k3(torch, k3, label, case, errs):
+    """Runs K3a-c on case = (q, k, v, mask, dO) and holds all six outputs
+    against the plain twins (K3_TOL), K3b's and K3c's to a second run (bit
+    for bit), and an all-masked element to reference_attention's values;
+    returns (o, lse, δ)."""
+    q, k, v, mask, do = case
+    counters = (k3.flash_attention_fwd, k3.flash_attention_bwd_dq,
+                k3.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    o, lse = k3.flash_attention_fwd(q, k, v, mask)
+    delta, dq = k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse)
+    dk, dv = k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
+    torch.cuda.synchronize()
+    if [c.launches for c in counters] != [n + 1 for n in before]:
+        raise AssertionError("a K3 wrapper did not count its launch")
+    ro, rlse = k3.flash_attention_fwd_plain(q, k, v, mask)
+    rdelta, rdq = k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)
+    rdk, rdv = k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
+    line = []
+    for kern, name, got, ref in (("fwd", "O", o, ro), ("fwd", "lse", lse, rlse),
+                                 ("dq", "delta", delta, rdelta),
+                                 ("dq", "dq", dq, rdq), ("dkv", "dk", dk, rdk),
+                                 ("dkv", "dv", dv, rdv)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K3 {name} {label}: non-finite values")
+        err = check_close(f"K3 {name} {label}", got, ref, *K3_TOL)
+        errs[kern] = max(errs[kern], err)
+        line.append(f"{name} {err:.3e}")
+    # No atomics and no order that varies: a second run repeats bit for bit.
+    delta2, dq2 = k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse)
+    dk2, dv2 = k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
+    if not all(torch.equal(a, b) for a, b in ((delta, delta2), (dq, dq2),
+                                               (dk, dk2), (dv, dv2))):
+        raise AssertionError(f"K3b/K3c {label}: a second run differs")
+    dead = [i for i in range(mask.shape[0]) if not mask[i].any()]
+    tk = k.shape[2]
+    for i in dead:  # reference_attention's values
+        if dq[i].any() or dk[i].any():
+            raise AssertionError("K3: dq, dk of an all-masked element not 0")
+        check_close("K3 all-masked O", o[i], v[i].mean(1, keepdim=True)
+                    .expand_as(o[i]), *K3_TOL)
+        check_close("K3 all-masked dv", dv[i], (do[i].sum(1, keepdim=True)
+                    / tk).expand_as(dv[i]), *K3_TOL)
+    b, h, tq, d = q.shape
+    print(f"K3 vs plain, {label} (B={b} H={h} Tq={tq} Tk={tk} D={d}): max abs "
+          f"err {', '.join(line)}; K3b and K3c repeat bit for bit"
+          + ("; all-masked element: mean of v, dq = dk = 0, dv = sum dO / Tk"
+             if dead else ""))
+    return o, lse, delta
+
+
+def phase_k3(torch, build, k3):
     """K3a-c against their plain twins on the card; returns the three
     kernels' records (launches filled in by phase 8)."""
     import torch.nn.functional as F
 
+    counts = sass_counts(build, "flash_attention")
+    for kernel in ("bwd_dq_kernel", "bwd_dkv_kernel"):
+        for inst in ("32", "64"):
+            found = [c for fn, c in counts.items()
+                     if kernel in fn and f"ILi{inst}E" in fn]
+            if len(found) != 1:
+                raise AssertionError(f"{kernel}<{inst}> not in the library's SASS")
+            c = found[0]
+            print(f"K3 SASS {kernel} D={inst}: {c['HGMMA']} HGMMA, "
+                  f"{c['LDGSTS']} LDGSTS (cp.async)")
+            if not c["HGMMA"] or not c["LDGSTS"]:
+                raise AssertionError(f"{kernel}<{inst}> has no tensor-core or "
+                                     f"cp.async instruction")
+
     rng = np.random.default_rng(SEED + 6)
     b, h, t, d = K3_SHAPE
+    lengths = list(rng.integers(t // 8, t + 1, size=b))
+    # Phase 8's padding: a few real tokens in each 2,048-key element.
+    sparse = list(np.random.default_rng(SEED + 7).integers(4, 17, size=b))
     cases = [
-        ("B·H=8 T=100 D=32", (2, 4, 100, 32), [60, 0]),
-        ("B·H=4 T=200 D=64", (2, 2, 200, 64), [200, 0]),
-        ("training shape", K3_SHAPE, list(rng.integers(t // 8, t + 1, size=b))),
+        ("B·H=8 T=100 D=32", (2, 4, 100, 100, 32), prefix_mask(torch, [60, 0], 100)),
+        ("B·H=4 T=200 D=64", (2, 2, 200, 200, 64), prefix_mask(torch, [200, 0], 200)),
     ]
+    for cd in (32, 64):
+        cases += [(f"whole-tile hole D={cd}", (3, 2, 300, 300, cd), hole_mask(torch, 3, 300)),
+                  (f"ragged Tq != Tk D={cd}", (3, 2, 130, 300, cd), hole_mask(torch, 3, 300)),
+                  (f"live tiles past the first 32 D={cd}", (3, 2, 70, 2200, cd),
+                   far_mask(torch, 3, 2200))]
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    for label, (cb, ch, ct, cd), lengths in cases:
-        q, k, v, mask, do = k3_case(torch, cb, ch, ct, cd, lengths, SEED)
-        before = (k3.flash_attention_fwd.launches,
-                  k3.flash_attention_bwd_dq.launches,
-                  k3.flash_attention_bwd_dkv.launches)
-        o, lse = k3.flash_attention_fwd(q, k, v, mask)
-        delta, dq = k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse)
-        dk, dv = k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
-        torch.cuda.synchronize()
-        after = (k3.flash_attention_fwd.launches,
-                 k3.flash_attention_bwd_dq.launches,
-                 k3.flash_attention_bwd_dkv.launches)
-        if after != tuple(x + 1 for x in before):
-            raise AssertionError("a K3 wrapper did not count its launch")
-        ro, rlse = k3.flash_attention_fwd_plain(q, k, v, mask)
-        rdelta, rdq = k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)
-        rdk, rdv = k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse,
-                                                    delta)
-        line = []
-        for kern, name, got, ref in (("fwd", "O", o, ro), ("fwd", "lse", lse, rlse),
-                                     ("dq", "delta", delta, rdelta),
-                                     ("dq", "dq", dq, rdq), ("dkv", "dk", dk, rdk),
-                                     ("dkv", "dv", dv, rdv)):
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"K3 {name} {label}: non-finite values")
-            err = check_close(f"K3 {name} {label}", got, ref, *K3_TOL)
-            errs[kern] = max(errs[kern], err)
-            line.append(f"{name} {err:.3e}")
-        if 0 in lengths:  # the all-masked element: reference_attention's values
-            i = lengths.index(0)
-            if dq[i].any() or dk[i].any():
-                raise AssertionError("K3: dq, dk of an all-masked element not 0")
-            check_close("K3 all-masked O", o[i], v[i].mean(1, keepdim=True)
-                        .expand_as(o[i]), *K3_TOL)
-            check_close("K3 all-masked dv", dv[i], (do[i].sum(1, keepdim=True)
-                        / ct).expand_as(dv[i]), *K3_TOL)
-        print(f"K3 vs plain, {label} (B={cb} H={ch} T={ct} D={cd}): max abs "
-              f"err {', '.join(line)}"
-              + ("; all-masked element: mean of v, dq = dk = 0" if 0 in lengths
-                 else ""))
-        del ro, rlse, rdelta, rdq, rdk, rdv
+    for label, (cb, ch, ctq, ctk, cd), mask in cases:
+        check_k3(torch, k3, label, k3_case(torch, cb, ch, ctq, ctk, cd, mask, SEED),
+                 errs)
 
-    # Timing at the training shape (the last case's tensors).
-    add_mask = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
-    fns = {
-        "fwd": (lambda: k3.flash_attention_fwd(q, k, v, mask),
-                lambda: k3.flash_attention_fwd_plain(q, k, v, mask)),
-        "dq": (lambda: k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse),
-               lambda: k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)),
-        "dkv": (lambda: k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta),
-                lambda: k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse,
-                                                         delta)),
-    }
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=add_mask)
-    library = {
-        "fwd": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=add_mask)),
-        "bwd": time_ms(lambda: torch.autograd.grad(
-            sdpa_out, leaves, do, retain_graph=True)),
-    }
-    work = k3_work(b, h, t, d, lengths)
-    print(f"K3 timing inputs: {int(sum(lengths))} valid keys of {b * t} "
-          f"({100 * sum(lengths) / (b * t):.1f}%); the bounds count valid "
-          f"keys only, the kernels score every key")
-    records = []
-    # (kernel, record name, the TPU kernel's body: _fwd_kernel,
-    # _bwd_dq_kernel, _bwd_dkv_kernel)
-    for kern, name, line in (("fwd", "flash_attention_fwd", 44),
-                             ("dq", "flash_attention_bwd_dq", 85),
-                             ("dkv", "flash_attention_bwd_dkv", 116)):
-        kernel_ms, plain_ms = (time_ms(f, reps=10) for f in fns[kern])
-        flops, nbytes = work[kern]
-        t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        lib_ms = library["fwd" if kern == "fwd" else "bwd"]
-        print(f"K3 {kern} at B={b} H={h} T={t} D={d}: kernel {kernel_ms:.4f} ms, "
-              f"plain twin {plain_ms:.4f} ms, SDPA "
-              f"{'forward' if kern == 'fwd' else 'backward (all of dq, dk, dv)'} "
-              f"{lib_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
-              f"({flops / 1e9:.1f} GFLOP f32 -> {t_ops:.4f} ms, "
-              f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); informational "
-              f"3xTF32 floor {3 * flops / TF32_FLOPS * 1e3:.4f} ms")
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": "tpu_deer_torch/kernels/csrc/flash_attention.cu",
-            "replaces": f"tpu_deer/ops/flash_attention.py:{line}",
-            "launches": None,  # filled from the training phase's run
-            "max_abs_err": errs[kern],
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
-        })
-    del leaves, sdpa_out, q, k, v, do, o, lse, delta, dq, dk, dv
+    # Timing at the training shape, under two masks.
+    library, records = {}, []
+    for mask_label, mask_lengths in (("prefix lengths in [T/8, T]", lengths),
+                                     ("4-16 valid keys", sparse)):
+        q, k, v, mask, do = k3_case(torch, b, h, t, t, d,
+                                    prefix_mask(torch, mask_lengths, t), SEED)
+        o, lse, delta = check_k3(torch, k3, f"training shape, {mask_label}",
+                                 (q, k, v, mask, do), errs)
+        fns = {
+            "fwd": (lambda: k3.flash_attention_fwd(q, k, v, mask),
+                    lambda: k3.flash_attention_fwd_plain(q, k, v, mask)),
+            "dq": (lambda: k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse),
+                   lambda: k3.flash_attention_bwd_dq_plain(q, k, v, mask, o, do, lse)),
+            "dkv": (lambda: k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta),
+                    lambda: k3.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse,
+                                                             delta)),
+        }
+        first = not records
+        if first:  # SDPA does not depend on the mask: timed once
+            add_mask = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=add_mask)
+            library = {
+                "fwd": time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=add_mask)),
+                "bwd": time_ms(lambda: torch.autograd.grad(
+                    sdpa_out, leaves, do, retain_graph=True)),
+            }
+            del leaves, sdpa_out
+        work = k3_work(b, h, t, d, mask_lengths)
+        print(f"K3 timing inputs, {mask_label}: {int(sum(mask_lengths))} valid "
+              f"keys of {b * t} ({100 * sum(mask_lengths) / (b * t):.1f}%), "
+              f"{100 * live_tile_share(torch, mask):.1f}% of the 64-key tiles "
+              f"live; the bounds count valid keys only; K3a scores every key, "
+              f"K3b and K3c skip the tiles with no valid key")
+        # (kernel, record name, the TPU kernel's body: _fwd_kernel,
+        # _bwd_dq_kernel, _bwd_dkv_kernel)
+        for kern, name, line in (("fwd", "flash_attention_fwd", 44),
+                                 ("dq", "flash_attention_bwd_dq", 85),
+                                 ("dkv", "flash_attention_bwd_dkv", 116)):
+            kernel_ms = time_ms(fns[kern][0], reps=10)
+            plain_ms = time_ms(fns[kern][1], reps=10) if first else None
+            flops, nbytes = work[kern]
+            t_ops = 3 * flops / TF32_FLOPS * 1e3  # 3xTF32
+            t_f32 = flops / F32_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            lib_ms = library["fwd" if kern == "fwd" else "bwd"]
+            print(f"K3 {kern} at B={b} H={h} T={t} D={d}, {mask_label}: kernel "
+                  f"{kernel_ms:.4f} ms"
+                  + (f", plain twin {plain_ms:.4f} ms, SDPA "
+                     f"{'forward' if kern == 'fwd' else 'backward (all of dq, dk, dv)'} "
+                     f"{lib_ms:.4f} ms" if first else "")
+                  + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.1f} "
+                  f"GFLOP at 3xTF32 -> {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> "
+                  f"{t_bytes:.4f} ms); float32 FMA bound {max(t_f32, t_bytes):.4f} ms")
+            if first:
+                records.append({
+                    "name": name,
+                    "route": "cuda",
+                    "source": "tpu_deer_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": f"tpu_deer/ops/flash_attention.py:{line}",
+                    "launches": None,  # filled from the training phase's run
+                    "max_abs_err": None,  # every phase-7 case, below
+                    "ms": kernel_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": lib_ms,
+                })
+        del q, k, v, do, o, lse, delta, fns
+    for record, kern in zip(records, ("fwd", "dq", "dkv")):
+        record["max_abs_err"] = errs[kern]
 
     # Crossover against SDPA (B = 16, H = 4, D = 32, a padding mask).
-    for ct in (512, 1024, 2048, 4096):
+    for ct in CROSSOVER_T:
         lengths = list(rng.integers(ct // 8, ct + 1, size=16))
-        q, k, v, mask, do = k3_case(torch, 16, 4, ct, 32, lengths, SEED + ct)
+        q, k, v, mask, do = k3_case(torch, 16, 4, ct, ct, 32,
+                                    prefix_mask(torch, lengths, ct), SEED + ct)
         add_mask = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
 
         def fwd_bwd(fn):
@@ -1049,14 +1164,16 @@ def phase_train(torch, k1, k3):
     clip = t3.optimizer.clip
 
     def one_step(batch, seed, plain):
-        """(loss, clipped gradients, parameters after) of one step, its
-        launches checked: K1 and K3 with the kernels, none with the twins."""
+        """(loss, clipped gradients, parameters after, gradients before the
+        clip) of one step, its launches checked: K1 and K3 with the kernels,
+        none with the twins."""
         if plain:
             attention.flash_attention = k3.flash_attention_plain
             taf.mfcc_signal = k1.mfcc_signal_plain
-        clipped = {}
+        clipped, raw = {}, {}
 
         def keep_clipped(grads):
+            raw.update((n, g.clone()) for n, g in zip(t3.optimizer.params, grads))
             clip(grads)
             clipped.update((n, g.clone())
                            for n, g in zip(t3.optimizer.params, grads))
@@ -1076,17 +1193,25 @@ def phase_train(torch, k1, k3):
             raise AssertionError(f"{'plain' if plain else 'kernel'} step "
                                  f"launched K1, K3a-c {launched}, want {want}")
         return (loss, clipped,
-                {n: p.detach().clone() for n, p in m.named_parameters()})
+                {n: p.detach().clone() for n, p in m.named_parameters()}, raw)
 
     rows = []
     for step in range(RAW_STEPS_COMPARED):
         batch = t3._gather(staged, np.arange(step * cfg.batch_size,
                                              (step + 1) * cfg.batch_size))
         start = copy.deepcopy((m.state_dict(), t3.optimizer.state_dict()))
-        pl, pg, pp = one_step(batch, SEED + step, plain=True)
+        if step == 0:  # the kernel step twice: which gradients vary by run
+            again = []
+            for _ in range(2):
+                again.append(one_step(batch, SEED, plain=False)[3])
+                m.load_state_dict(start[0])
+                t3.optimizer.load_state_dict(start[1])
+            varying = [n for n in again[0]
+                       if not torch.equal(again[0][n], again[1][n])]
+        pl, pg, pp, _ = one_step(batch, SEED + step, plain=True)
         m.load_state_dict(start[0])
         t3.optimizer.load_state_dict(start[1])
-        kl, kg, kp = one_step(batch, SEED + step, plain=False)
+        kl, kg, kp, _ = one_step(batch, SEED + step, plain=False)
         label = f"step {step + 1} kernels vs plain"
         loss_err = check_close(f"{label}: loss", torch.tensor(kl),
                                torch.tensor(pl), *TRAIN_TOL["loss"])
@@ -1110,6 +1235,9 @@ def phase_train(torch, k1, k3):
     torch.backends.cudnn.deterministic = False
     print(f"train: K1 and K3 vs their plain twins, each step from the same "
           f"state; " + "; ".join(rows))
+    print(f"train: step 1 with the kernels twice from the same state: "
+          f"{len(varying)} of {len(again[0])} gradients differ in their bits "
+          f"({', '.join(varying) or 'none'})")
     return launches
 
 
@@ -1448,7 +1576,7 @@ def main() -> int:
     push_lat = phase_server(torch, model, detector)
     phase_stream_timing(torch, rec, chunks, video, text, push_lat)
 
-    k3_records = phase_k3(torch, k3)
+    k3_records = phase_k3(torch, build, k3)
     launches = phase_train(torch, k1, k3)
     for k3_record, n in zip(k3_records, launches[1:]):
         k3_record["launches"] = n

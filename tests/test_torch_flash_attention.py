@@ -36,11 +36,13 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=2e-5)
 
 
-def _case(rng, b=2, h=2, tq=100, tk=100, d=32, masked=()):
+def _case(rng, b=2, h=2, tq=100, tk=100, d=32, masked=(), hole=None):
     q, do = (rng.normal(size=(b, h, tq, d)).astype(np.float32) for _ in range(2))
     k, v = (rng.normal(size=(b, h, tk, d)).astype(np.float32) for _ in range(2))
     mask = np.ones((b, tk), np.float32)
     mask[0, (2 * tk) // 3:] = 0.0  # a partial mask on element 0
+    if hole is not None:  # masked keys [start, stop) of element 1
+        mask[1, slice(*hole)] = 0.0
     for i in masked:
         mask[i] = 0.0
     return q, k, v, mask, do
@@ -74,6 +76,7 @@ PORT = {"autograd": tfa.flash_attention, "plain": tfa.flash_attention_plain}
     dict(tq=200, tk=200, d=64),
     dict(tq=70, tk=130, d=32),    # Tq != Tk
     dict(tq=130, tk=60, d=64),
+    dict(tq=150, tk=320, d=32, hole=(64, 192)),  # whole 64-key tiles masked
 ])
 def test_matches_jax_flash(impl, shape, rng):
     case = _case(rng, **shape)

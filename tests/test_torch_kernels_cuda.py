@@ -100,12 +100,26 @@ def test_stream_tick_launches_k2_once(device):
                                    err_msg=key)
 
 
-def _k3_case(device, b, h, tq, tk, d, seed=0):
+def _k3_case(device, b, h, tq, tk, d, seed=0, kind="prefix"):
+    """(q, k, v, mask, dO) on the card; element 0 gets a padding mask
+    ("prefix"), a hole of whole 64-key tiles between valid keys ("hole"),
+    valid keys in its last 64-key tile only ("last_tile"), or in its first
+    tile and past its first 32 tiles ("far", where K3b reads a second
+    window of live tiles); the last element is all-masked."""
     g = torch.Generator().manual_seed(seed)
     q, do = (torch.randn(b, h, tq, d, generator=g) for _ in range(2))
     k, v = (torch.randn(b, h, tk, d, generator=g) for _ in range(2))
     mask = torch.ones(b, tk)
-    mask[0, tk // 3:] = 0.0  # a padding mask
+    if kind == "prefix":
+        mask[0, tk // 3:] = 0.0
+    elif kind == "hole":
+        mask[0, 64:192] = 0.0
+    elif kind == "last_tile":
+        mask[0, :(tk - 1) // 64 * 64] = 0.0
+    else:
+        mask[0] = 0.0
+        mask[0, 10:20] = 1.0
+        mask[0, 2100:2150] = 1.0
     mask[-1] = 0.0  # an all-masked element
     return [x.to(device) for x in (q, k, v, mask, do)]
 
@@ -117,7 +131,21 @@ def test_k3_matches_plain(device, b, h, tq, tk, d):
     """Each kernel against its plain twin, and the autograd function
     against the plain function's autograd gradients; ragged T, Tq != Tk,
     an all-masked element."""
-    q, k, v, mask, do = _k3_case(device, b, h, tq, tk, d)
+    _check_k3(*_k3_case(device, b, h, tq, tk, d))
+
+
+@pytest.mark.parametrize("kind", ["hole", "last_tile", "far"])
+@pytest.mark.parametrize("d", [32, 64])
+def test_k3_skipped_tiles_match_plain(device, kind, d):
+    """Masks whose masked keys fill whole key tiles, which K3b and K3c
+    skip: a hole between valid keys, a Tk of a few hundred with only its
+    last tile live, and live tiles on both sides of the 32-tile window
+    K3b reads at a time; the all-masked element beside them."""
+    tk = 2200 if kind == "far" else 300
+    _check_k3(*_k3_case(device, 3, 2, 130, tk, d, kind=kind))
+
+
+def _check_k3(q, k, v, mask, do):
     tol = dict(rtol=1e-4, atol=2e-5)
     counts = lambda: (k3.flash_attention_fwd.launches,
                       k3.flash_attention_bwd_dq.launches,
