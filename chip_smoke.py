@@ -32,26 +32,32 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               direct predict; then tick and push latency and a profile;
   7. K3     — the flash-attention kernels (K3a forward, K3b dq, K3c dk/dv):
               the count of tensor-core (HGMMA) and cp.async (LDGSTS)
-              instructions in each backward kernel's SASS; all six outputs
+              instructions in each kernel's SASS; all six outputs
               against their plain twins at B·H = 8, T = 100, D = 32, at
               D = 64, with a hole of whole 64-key tiles (keys 64-191),
               ragged Tq = 130 != Tk = 300 and live key tiles past the
               first 32 (Tk = 2200), each at D = 32 and 64 with an
               all-masked element, and at the training shape B = 64, H = 4,
               T = 2048, D = 32 under two masks (prefix lengths in [T/8, T];
-              4-16 valid keys, phase 8's padding), with the share of live
-              key tiles; their times beside their 3xTF32 bounds (float32
-              FMA bounds printed beside), the plain twins and PyTorch's SDPA;
-              the K3-vs-SDPA crossover over T in {512, 1024, 2048, 4096};
+              4-16 valid keys, phase 8's padding), each against a second
+              run bit for bit; their times on the share of live key tiles
+              beside their 3xTF32 bounds (float32 FMA bounds printed
+              beside), the plain twins and PyTorch's SDPA; the K3-vs-SDPA
+              crossover, forward and forward+backward, over T in {256, 512,
+              1024, 2048, 4096};
   8. train  — RawSequenceTrainer on a 768/96/96-utterance IEMOCAP-layout
               fixture (seed 42, transcripts padded to 2,048 tokens) at the
               CLI's full width: 24 steps (lr 2e-3, batch 64, 2 epochs) and
-              predict on the test split, with the launches of K1 and K3a-c
-              on every step and predict batch; step time, val CCC, a
-              profiled step; the step time at the CLI's own 16 tokens (no
-              K3); then 3 steps, each run with the kernels and with their
-              plain twins from the same seeded state, and the first kernel
-              step twice, naming the gradients whose bits vary by run;
+              predict on the test split, with the launches of K1, K3a-c and
+              the embedding gradient on every step and predict batch; step
+              time, val CCC; the same seeded run again from a fresh model,
+              equal bit for bit (val CCC, parameters, predictions); a
+              profiled step with K3a's share of its device time; the
+              embedding gradient at the step's shape against its plain twin
+              and timed beside its byte bound; the step time at the CLI's
+              own 16 tokens (no K3); then 3 steps, each run with the
+              kernels and with their plain twins from the same seeded
+              state, and the first kernel step twice, equal bit for bit;
   9. K4     — the stochastic int8 quantizer against its plain twins at
               [1, 1], [7, 13], [768, 512] and [4096, 4096], with the given
               words and with Philox words: equal values and scale bits, a
@@ -95,7 +101,7 @@ SEED = 0
 SR = 16000
 N_UTTERANCES = 300
 KERNELS = ("mfcc_signal", "mfcc_frames", "flash_attention",
-           "quantize_int8")  # csrc/<name>.cu
+           "quantize_int8", "embedding_grad")  # csrc/<name>.cu
 STREAMS = 256  # concurrent streams per tick (the shape of bench.py:281-283)
 TICKS = 8
 SERVER_SLOTS, CLIENTS, PUSHES = 64, 16, 4
@@ -107,7 +113,7 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 (K3's bound: 3xTF32)
 # cuBLAS's over up to 2,048 keys; lse and δ are sums of the same kind.
 K3_TOL = (1e-4, 5e-5)
 K3_SHAPE = (64, 4, 2048, 32)  # B, H, T, D of the training step's text layers
-CROSSOVER_T = (512, 1024, 2048, 4096)  # K3 vs SDPA at B = 16, H = 4, D = 32
+CROSSOVER_T = (256, 512, 1024, 2048, 4096)  # K3 vs SDPA at B = 16, H = 4, D = 32
 RAW_FIXTURE = (768, 96, 96)  # cli.py --raw, non-quick
 RAW_BATCH = 64  # cli.py --raw, non-quick
 # Transcripts padded to 2,048 tokens so that both train (>= 1024) and predict
@@ -127,6 +133,10 @@ RAW_STEPS_COMPARED = 3
 # noise, so it is shown, not held.
 TRAIN_TOL = {"loss": (1e-4, 1e-5), "grads": (1e-3, 1e-6)}
 GRAD_FLOOR, PARAM_ATOL = 1e-4, 1e-4
+# The embedding gradient against its plain twin in float64 (rtol, atol): a
+# float32 sum of up to ~130,000 rows of the padding id, taken in pieces of
+# 64 and then over the pieces.
+EMB_TOL = (1e-5, 1e-3)
 # (rtol, atol) for mfcc, logmel, power, timefeats: float32 sums of 1024
 # products in another order (cuBLAS vs the kernel's FMA chain); ZCR exact.
 K1_TOL = ((2e-3, 5e-3), (2e-4, 1e-3), (2e-4, 1e-3), (1e-4, 1e-5))
@@ -186,55 +196,85 @@ def time_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, calls=20):
-    """Device time per call of fn (ms): its kernels' and memsets' device
-    time under the profiler over `calls` calls. For kernels of tens of
-    microseconds, where time_ms also counts the gaps while the host
-    enqueues the next launch."""
+def profiled(torch, fn, expect, windows, markers=64):
+    """Run fn under the profiler; returns ([(device event name, ms)], wall
+    ms) of the first of up to `windows` windows that lost none of fn's
+    device events, else None. On the H100 the profiler drops the first
+    device events of a window, more of them the longer the process has
+    run (one more every 5-25 s; now and then all). So each window first
+    runs `markers` empty kernels (torch.cuda._sleep(1), doubled at each
+    retry) and counts only if one of them and, for each name in `expect`,
+    at least its count of fn's device events came through."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(markers):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        kept = sum("spin_kernel" in name for name, _ in events)
+        events = [(name, ms) for name, ms in events if "spin_kernel" not in name]
+        short = {key: n for key, n in (expect or {}).items()
+                 if sum(key in name for name, _ in events) < n}
+        if kept and events and not short:
+            return events, wall_ms
+        print(f"profiler: a window lost {markers - kept} of its {markers} "
+              f"markers" + "".join(f", {key} < {n}" for key, n in short.items()))
+        markers *= 2
+    return None
+
+
+def device_ms(torch, fn, calls=20, expect=(), windows=3):
+    """Device time per call of fn (ms): its kernels' and memsets' device
+    time under the profiler over `calls` calls, each of the kernels named
+    in `expect` seen once a call; None (not measured) if no window had
+    them all. For kernels of tens of microseconds, where time_ms also
+    counts the gaps while the host enqueues the next launch."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    if not total:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / calls
+
+    got = profiled(torch, run, {key: calls for key in expect}, windows)
+    return None if got is None else sum(ms for _, ms in got[0]) / calls
 
 
-def profile_window(torch, label, fn):
-    """Print the device's busy share and top kernels over one call of fn."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def ms_text(ms):
+    """A device time from device_ms as text."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            launches += 1
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    if not kernels:
-        print(f"profile {label}: wall {wall_ms:.3f} ms under the profiler; "
-              f"device time not measured (the profiler saw no kernels)")
-        return
+
+def profile_window(torch, label, fn, expect=None, windows=1):
+    """Print the device's busy share and top kernels over one call of fn
+    (taken again, up to `windows` calls, while the profiler misses one of
+    the `expect` launches: see `profiled`); returns {kernel name: device
+    ms} ({} if not measured)."""
+    got = profiled(torch, fn, expect, windows)
+    if got is None:
+        print(f"profile {label}: device time not measured (the profiler "
+              f"missed device events in {windows} window(s))")
+        return {}
+    events, wall_ms = got
+    kernels = {}
+    for name, ms in events:
+        kernels[name] = kernels.get(name, 0.0) + ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
     print(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, "
-          f"{launches} device events, {busy:.3f} ms on the device "
+          f"{len(events)} device events, {busy:.3f} ms on the device "
           f"(busy {100 * busy / wall_ms:.1f}%); top: "
           + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top))
+    return kernels
 
 
 def voice(rng, n, f0):
@@ -843,7 +883,7 @@ def k3_work(b, h, t, d, lengths):
 
 def check_k3(torch, k3, label, case, errs):
     """Runs K3a-c on case = (q, k, v, mask, dO) and holds all six outputs
-    against the plain twins (K3_TOL), K3b's and K3c's to a second run (bit
+    against the plain twins (K3_TOL), each kernel's to a second run (bit
     for bit), and an all-masked element to reference_attention's values;
     returns (o, lse, δ)."""
     q, k, v, mask, do = case
@@ -870,24 +910,28 @@ def check_k3(torch, k3, label, case, errs):
         errs[kern] = max(errs[kern], err)
         line.append(f"{name} {err:.3e}")
     # No atomics and no order that varies: a second run repeats bit for bit.
+    o2, lse2 = k3.flash_attention_fwd(q, k, v, mask)
     delta2, dq2 = k3.flash_attention_bwd_dq(q, k, v, mask, o, do, lse)
     dk2, dv2 = k3.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
-    if not all(torch.equal(a, b) for a, b in ((delta, delta2), (dq, dq2),
-                                               (dk, dk2), (dv, dv2))):
-        raise AssertionError(f"K3b/K3c {label}: a second run differs")
+    if not all(torch.equal(a, b) for a, b in ((o, o2), (lse, lse2), (delta, delta2),
+                                               (dq, dq2), (dk, dk2), (dv, dv2))):
+        raise AssertionError(f"K3 {label}: a second run differs")
     dead = [i for i in range(mask.shape[0]) if not mask[i].any()]
     tk = k.shape[2]
     for i in dead:  # reference_attention's values
         if dq[i].any() or dk[i].any():
             raise AssertionError("K3: dq, dk of an all-masked element not 0")
+        if not (lse[i] < k3.NO_VALID_KEY).all():
+            raise AssertionError("K3: an all-masked element's lse reads as valid")
         check_close("K3 all-masked O", o[i], v[i].mean(1, keepdim=True)
                     .expand_as(o[i]), *K3_TOL)
         check_close("K3 all-masked dv", dv[i], (do[i].sum(1, keepdim=True)
                     / tk).expand_as(dv[i]), *K3_TOL)
     b, h, tq, d = q.shape
     print(f"K3 vs plain, {label} (B={b} H={h} Tq={tq} Tk={tk} D={d}): max abs "
-          f"err {', '.join(line)}; K3b and K3c repeat bit for bit"
-          + ("; all-masked element: mean of v, dq = dk = 0, dv = sum dO / Tk"
+          f"err {', '.join(line)}; K3a-c repeat bit for bit"
+          + ("; all-masked element: mean of v, lse < -5e29, dq = dk = 0, "
+             "dv = sum dO / Tk"
              if dead else ""))
     return o, lse, delta
 
@@ -898,7 +942,7 @@ def phase_k3(torch, build, k3):
     import torch.nn.functional as F
 
     counts = sass_counts(build, "flash_attention")
-    for kernel in ("bwd_dq_kernel", "bwd_dkv_kernel"):
+    for kernel in ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel"):
         for inst in ("32", "64"):
             found = [c for fn, c in counts.items()
                      if kernel in fn and f"ILi{inst}E" in fn]
@@ -960,11 +1004,11 @@ def phase_k3(torch, build, k3):
             }
             del leaves, sdpa_out
         work = k3_work(b, h, t, d, mask_lengths)
+        live = 100 * live_tile_share(torch, mask)
         print(f"K3 timing inputs, {mask_label}: {int(sum(mask_lengths))} valid "
               f"keys of {b * t} ({100 * sum(mask_lengths) / (b * t):.1f}%), "
-              f"{100 * live_tile_share(torch, mask):.1f}% of the 64-key tiles "
-              f"live; the bounds count valid keys only; K3a scores every key, "
-              f"K3b and K3c skip the tiles with no valid key")
+              f"{live:.1f}% of the 64-key tiles live; the bounds count valid "
+              f"keys only; K3a, K3b and K3c skip the tiles with no valid key")
         # (kernel, record name, the TPU kernel's body: _fwd_kernel,
         # _bwd_dq_kernel, _bwd_dkv_kernel)
         for kern, name, line in (("fwd", "flash_attention_fwd", 44),
@@ -978,7 +1022,7 @@ def phase_k3(torch, build, k3):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             lib_ms = library["fwd" if kern == "fwd" else "bwd"]
             print(f"K3 {kern} at B={b} H={h} T={t} D={d}, {mask_label}: kernel "
-                  f"{kernel_ms:.4f} ms"
+                  f"{kernel_ms:.4f} ms on {live:.1f}% live key tiles"
                   + (f", plain twin {plain_ms:.4f} ms, SDPA "
                      f"{'forward' if kern == 'fwd' else 'backward (all of dq, dk, dv)'} "
                      f"{lib_ms:.4f} ms" if first else "")
@@ -1026,16 +1070,70 @@ def phase_k3(torch, build, k3):
     return records
 
 
-def phase_train(torch, k1, k3):
+def phase_embedding(torch, emb, ids, vocab_size, d):
+    """The embedding-gradient kernel at phase 8's shape (a batch's token ids,
+    dX [64, 2048, d]) against its plain twin, and against a second run bit
+    for bit; its time beside its byte bound. Returns its record."""
+    from tpu_deer_torch.data.vocab import PAD_ID
+
+    ids = ids.long().contiguous()
+    dx = torch.randn(*ids.shape, d, generator=torch.Generator().manual_seed(SEED)
+                     ).to(DEVICE)
+    before = emb.embedding_grad.launches
+    got = emb.embedding_grad(ids, dx, vocab_size)
+    again = emb.embedding_grad(ids, dx, vocab_size)
+    torch.cuda.synchronize()
+    if emb.embedding_grad.launches != before + 2:
+        raise AssertionError("embedding_grad did not count its launches")
+    if not torch.equal(got, again):
+        raise AssertionError("embedding_grad: a second run differs")
+    ref = emb.embedding_grad_plain(ids, dx.double(), vocab_size)
+    err = check_close("embedding grad", got.double(), ref, *EMB_TOL)
+    run = lambda fn: (lambda: fn(ids, dx, vocab_size))
+    kernel_ms = time_ms(run(emb.embedding_grad))
+    dev_ms = device_ms(torch, run(emb.embedding_grad),
+                       expect=("piece_kernel", "join_kernel"))
+    plain_ms = time_ms(run(emb.embedding_grad_plain))
+    zeros = torch.zeros(vocab_size, d, device=dx.device)
+    flat_ids, flat = ids.reshape(-1), dx.reshape(-1, d)
+    lib_ms = time_ms(lambda: torch.index_add(zeros, 0, flat_ids, flat))
+    n = ids.numel()
+    nbytes = 4 * n * d + 8 * n + 4 * vocab_size * d  # dX, ids in; dW out
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    pad = (ids == PAD_ID).float().mean().item()
+    print(f"embedding grad at phase 8's shape ({n} ids, {100 * pad:.1f}% PAD_ID, "
+          f"D={d}, V={vocab_size}): max abs err {err:.3e} vs the plain twin in "
+          f"float64, a second run equal bit for bit; kernel {kernel_ms:.4f} ms a "
+          f"call (sort included; {ms_text(dev_ms)} on the device), plain twin "
+          f"{plain_ms:.4f} ms, torch.index_add {lib_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return {
+        "name": "embedding_grad",
+        "route": "cuda",
+        "source": "tpu_deer_torch/kernels/csrc/embedding_grad.cu",
+        # not a TPU kernel: the gradient of flax nn.Embed's lookup
+        "replaces": "tpu_deer/models/encoders.py:328",
+        "launches": None,  # filled from the training phase's run
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+    }
+
+
+def phase_train(torch, k1, k3, emb):
     """Raw-media training at the CLI's full width; returns the launches of
-    K1, K3a, K3b and K3c in the counted run."""
+    K1, K3a, K3b, K3c and the embedding gradient in the counted run, and
+    the embedding gradient's record."""
     import tempfile
 
     from tpu_deer_torch.data.raw_corpus import (
         generate_raw_fixture,
         load_raw_corpus,
     )
-    from tpu_deer_torch.models import attention
+    from tpu_deer_torch.models import attention, encoders
     from tpu_deer_torch.models.hierarchical_deer import (
         create_raw_sequence_model,
     )
@@ -1065,7 +1163,8 @@ def phase_train(torch, k1, k3):
     trainer = RawSequenceTrainer(model, cfg, device=DEVICE)
 
     counters = (k1.mfcc_signal, k3.flash_attention_fwd,
-                k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv)
+                k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv,
+                emb.embedding_grad)
     read = lambda: [c.launches for c in counters]
 
     def timed(trainer, steps):
@@ -1097,14 +1196,16 @@ def phase_train(torch, k1, k3):
     n_steps = cfg.num_epochs * (len(tr["labels"]) // cfg.batch_size)
     batches = -(-len(val["labels"]) // cfg.batch_size) * cfg.num_epochs + \
         -(-len(test["labels"]) // cfg.batch_size)
-    if len(steps) != n_steps or any(d != [1, 2, 2, 2] for _, d in steps):
+    if len(steps) != n_steps or any(d != [1, 2, 2, 2, 1] for _, d in steps):
         raise AssertionError(f"train steps launched {[d for _, d in steps]}, "
-                             f"expected [1, 2, 2, 2] (K1, K3a, K3b, K3c) each")
-    want = [n_steps + batches, 2 * (n_steps + batches), 2 * n_steps, 2 * n_steps]
+                             f"expected [1, 2, 2, 2, 1] (K1, K3a, K3b, K3c, "
+                             f"embedding grad) each")
+    want = [n_steps + batches, 2 * (n_steps + batches), 2 * n_steps, 2 * n_steps,
+            n_steps]
     if launches != want:
-        raise AssertionError(f"launches K1, K3a, K3b, K3c {launches}, want "
-                             f"{want} ({n_steps} steps, {batches} predict "
-                             f"batches)")
+        raise AssertionError(f"launches K1, K3a, K3b, K3c, embedding grad "
+                             f"{launches}, want {want} ({n_steps} steps, "
+                             f"{batches} predict batches)")
     losses = result["history"]["train_loss"]
     if not np.isfinite(losses).all() or pred["mu"].shape != (len(test["labels"]), 3) \
             or not np.isfinite(pred["mu"]).all() \
@@ -1123,11 +1224,52 @@ def phase_train(torch, k1, k3):
           f"{', '.join(f'{x:.4f}' for x in result['history']['val_ccc'])}; "
           f"test CCC {test_ccc:.4f}")
     print(f"train: launches K1 {launches[0]}, K3a {launches[1]}, K3b "
-          f"{launches[2]}, K3c {launches[3]}: [1, 2, 2, 2] on each of "
-          f"{n_steps} steps, [1, 2, 0, 0] on each of {batches} predict batches")
+          f"{launches[2]}, K3c {launches[3]}, embedding grad {launches[4]}: "
+          f"[1, 2, 2, 2, 1] on each of {n_steps} steps, [1, 2, 0, 0, 0] on "
+          f"each of {batches} predict batches")
+
+    # The same seeded run again, from a fresh model: nothing in the step may
+    # vary by run (no atomics on float data, no order that varies).
+    m2 = create_raw_sequence_model(seed=SEED, device=DEVICE, **model_kw)
+    t2 = RawSequenceTrainer(m2, cfg, device=DEVICE)
+    result2 = t2.train(tr, val)
+    pred2 = t2.predict(test)
+    params2 = dict(m2.named_parameters())
+    differ = [n for n, p in model.named_parameters() if not torch.equal(p, params2[n])]
+    ccc, ccc2 = result["history"]["val_ccc"], result2["history"]["val_ccc"]
+    if ccc != ccc2 or differ or not np.array_equal(pred["mu"], pred2["mu"]):
+        raise AssertionError(f"the seeded run did not repeat: val CCC {ccc} vs "
+                             f"{ccc2}; {len(differ)} parameters differ "
+                             f"({', '.join(differ[:8])})")
+    print(f"train: the seeded 2-epoch run again from a fresh model: val CCC "
+          f"{', '.join(f'{x:.4f}' for x in ccc2)}, all {len(params2)} parameters "
+          f"and the test predictions equal bit for bit")
+    del m2, t2, params2
+
     staged = trainer._stage(tr)
     batch = trainer._gather(staged, np.arange(cfg.batch_size))
-    profile_window(torch, "train step", lambda: trainer._train_step(batch))
+    step_launches = {"mfcc_signal": 1, "fwd_kernel": 2, "bwd_dq_kernel": 2,
+                     "bwd_dkv_kernel": 2, "piece_kernel": 1, "join_kernel": 1}
+    kernels = profile_window(torch, "train step", lambda: trainer._train_step(batch),
+                             expect=step_launches, windows=3)
+    if kernels:  # the step's device time by kernel group, first match
+        groups = (("K3a", ("fwd_kernel",)), ("K3b", ("bwd_dq_kernel",)),
+                  ("K3c", ("bwd_dkv_kernel",)), ("K1", ("mfcc_signal",)),
+                  ("embedding grad", ("piece_kernel", "join_kernel")),
+                  ("its id sort", ("RadixSort",)), ("cuDNN", ("cudnn",)),
+                  ("GEMMs", ("gemm", "Kernel2")), ("reductions", ("reduce_kernel",)),
+                  ("elementwise", ("elementwise",)))
+        split = {label: 0.0 for label, _ in groups} | {"other": 0.0}
+        for name, ms in kernels.items():
+            label = next((label for label, keys in groups
+                          if any(key in name for key in keys)), "other")
+            split[label] += ms
+        busy = sum(kernels.values())
+        print(f"train step on the device: {busy:.3f} ms; " + "; ".join(
+            f"{label} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
+            for label, ms in split.items()))
+    emb_record = phase_embedding(torch, emb, batch["token_ids"], vocab.vocab_size,
+                                 model.text_encoder.model_dim)
 
     # The same step at the CLI's own transcript length (no K3: T < 1024).
     cli_steps = []
@@ -1135,16 +1277,20 @@ def phase_train(torch, k1, k3):
     t16 = RawSequenceTrainer(m, cfg, device=DEVICE)
     timed(t16, cli_steps)
     t16.train(cli_tr, num_epochs=1)
-    if any(d != [1, 0, 0, 0] for _, d in cli_steps):
+    if any(d != [1, 0, 0, 0, 1] for _, d in cli_steps):
         raise AssertionError(f"steps at {CLI_MAX_TOKENS} tokens launched "
-                             f"{[d for _, d in cli_steps]}, expected K1 only")
+                             f"{[d for _, d in cli_steps]}, expected K1 and "
+                             f"the embedding gradient only")
     cli_ms = [1e3 * t for t, _ in cli_steps]
     print(f"train: the same step at the CLI's {CLI_MAX_TOKENS} tokens: p50 "
           f"{np.median(cli_ms[1:]):.4f} ms over {len(cli_ms) - 1} steps after "
-          f"the first ({cli_ms[0]:.1f} ms); K1 once a step, no K3")
+          f"the first ({cli_ms[0]:.1f} ms); K1 and the embedding gradient once "
+          f"a step, no K3")
     profile_window(torch, f"train step at {CLI_MAX_TOKENS} tokens",
                    lambda: t16._train_step(t16._gather(
-                       t16._stage(cli_tr), np.arange(cfg.batch_size))))
+                       t16._stage(cli_tr), np.arange(cfg.batch_size))),
+                   expect={"mfcc_signal": 1, "piece_kernel": 1, "join_kernel": 1},
+                   windows=3)
     del m, t16
 
     # Kernels against plain twins over 3 steps. Each step runs the plain
@@ -1156,8 +1302,7 @@ def phase_train(torch, k1, k3):
     # part: an entry whose exact gradient is ~0 takes an Adam step of ±lr
     # on float noise, and the next steps' gradients differ by far more than
     # the kernels' rounding.
-    torch.backends.cudnn.deterministic = True
-    saved = (attention.flash_attention, taf.mfcc_signal)
+    saved = (attention.flash_attention, taf.mfcc_signal, encoders.embedding_lookup)
     m = create_raw_sequence_model(seed=SEED + 1, device=DEVICE, **model_kw)
     t3 = RawSequenceTrainer(m, cfg, device=DEVICE)
     staged = t3._stage(tr)
@@ -1170,6 +1315,7 @@ def phase_train(torch, k1, k3):
         if plain:
             attention.flash_attention = k3.flash_attention_plain
             taf.mfcc_signal = k1.mfcc_signal_plain
+            encoders.embedding_lookup = emb.embedding_lookup_plain
         clipped, raw = {}, {}
 
         def keep_clipped(grads):
@@ -1186,12 +1332,13 @@ def phase_train(torch, k1, k3):
             loss = float(t3._train_step(batch))
             launched = [a - b for a, b in zip(read(), before)]
         finally:
-            attention.flash_attention, taf.mfcc_signal = saved
+            attention.flash_attention, taf.mfcc_signal, encoders.embedding_lookup = saved
             t3.optimizer.clip = clip
-        want = [0] * 4 if plain else [1, 2, 2, 2]
+        want = [0] * 5 if plain else [1, 2, 2, 2, 1]
         if launched != want:
             raise AssertionError(f"{'plain' if plain else 'kernel'} step "
-                                 f"launched K1, K3a-c {launched}, want {want}")
+                                 f"launched K1, K3a-c, embedding grad "
+                                 f"{launched}, want {want}")
         return (loss, clipped,
                 {n: p.detach().clone() for n, p in m.named_parameters()}, raw)
 
@@ -1200,7 +1347,7 @@ def phase_train(torch, k1, k3):
         batch = t3._gather(staged, np.arange(step * cfg.batch_size,
                                              (step + 1) * cfg.batch_size))
         start = copy.deepcopy((m.state_dict(), t3.optimizer.state_dict()))
-        if step == 0:  # the kernel step twice: which gradients vary by run
+        if step == 0:  # the kernel step twice: no gradient may vary by run
             again = []
             for _ in range(2):
                 again.append(one_step(batch, SEED, plain=False)[3])
@@ -1208,6 +1355,11 @@ def phase_train(torch, k1, k3):
                 t3.optimizer.load_state_dict(start[1])
             varying = [n for n in again[0]
                        if not torch.equal(again[0][n], again[1][n])]
+            if varying:
+                raise AssertionError(f"step 1 with the kernels twice from the "
+                                     f"same state: {len(varying)} of "
+                                     f"{len(again[0])} gradients differ in their "
+                                     f"bits ({', '.join(varying)})")
         pl, pg, pp, _ = one_step(batch, SEED + step, plain=True)
         m.load_state_dict(start[0])
         t3.optimizer.load_state_dict(start[1])
@@ -1232,13 +1384,11 @@ def phase_train(torch, k1, k3):
                     f"parameters {held_err:.3e} on the {int(held.sum())} of "
                     f"{held.numel()} with |g| >= {GRAD_FLOOR}, the rest up to "
                     f"{diffs[~held].max().item() if (~held).any() else 0:.3e}")
-    torch.backends.cudnn.deterministic = False
-    print(f"train: K1 and K3 vs their plain twins, each step from the same "
-          f"state; " + "; ".join(rows))
-    print(f"train: step 1 with the kernels twice from the same state: "
-          f"{len(varying)} of {len(again[0])} gradients differ in their bits "
-          f"({', '.join(varying) or 'none'})")
-    return launches
+    print(f"train: K1, K3 and the embedding gradient vs their plain twins, "
+          f"each step from the same state; " + "; ".join(rows))
+    print(f"train: step 1 with the kernels twice from the same state: all "
+          f"{len(again[0])} gradients equal bit for bit")
+    return launches, emb_record
 
 
 def k4_bounds(torch, q, s, w, label):
@@ -1306,8 +1456,11 @@ def phase_k4(torch, k4):
     n = w.numel()  # the last shape, [4096, 4096]
     kernel_ms = time_ms(lambda: k4.quantize_int8_stochastic(w, seed))
     bits_ms = time_ms(lambda: k4.quantize_int8_stochastic_bits(w, bits))
-    dev_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic(w, seed))
-    dev_bits_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic_bits(w, bits))
+    k4_names = ("amax_kernel", "quantize_kernel")
+    dev_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic(w, seed),
+                       expect=k4_names)
+    dev_bits_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic_bits(w, bits),
+                            expect=k4_names)
     plain_ms = time_ms(lambda: k4.quantize_int8_stochastic_plain(w, seed))
     plain_bits_ms = time_ms(lambda: k4.quantize_int8_stochastic_bits_plain(w, bits))
     # Bytes: w read once, q written once (the bits variant reads 4 B more).
@@ -1317,7 +1470,7 @@ def phase_k4(torch, k4):
     t_ops = 7 * n / F32_FLOPS * 1e3
     print(f"K4 at {tuple(w.shape)}: kernel (Philox) {kernel_ms:.4f} ms, with "
           f"given words {bits_ms:.4f} ms (a call between CUDA events, as K1-K3); "
-          f"device time {dev_ms:.4f} ms, with given words {dev_bits_ms:.4f} ms "
+          f"device time {ms_text(dev_ms)}, with given words {ms_text(dev_bits_ms)} "
           f"(K4a + K4b and the memset, profiler); plain twin {plain_ms:.4f} ms "
           f"(Philox words in torch on the card), {plain_bits_ms:.4f} ms with "
           f"given words; bound {max(t_bytes, t_ops):.4f} ms ({5 * n / 1e6:.1f} MB "
@@ -1546,6 +1699,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpu_deer_torch.kernels import build
+    from tpu_deer_torch.kernels import embedding as emb
     from tpu_deer_torch.kernels import flash_attention as k3
     from tpu_deer_torch.kernels import mfcc_frames as k2
     from tpu_deer_torch.kernels import mfcc_signal as k1
@@ -1577,16 +1731,18 @@ def main() -> int:
     phase_stream_timing(torch, rec, chunks, video, text, push_lat)
 
     k3_records = phase_k3(torch, build, k3)
-    launches = phase_train(torch, k1, k3)
-    for k3_record, n in zip(k3_records, launches[1:]):
+    launches, emb_record = phase_train(torch, k1, k3, emb)
+    for k3_record, n in zip(k3_records, launches[1:4]):
         k3_record["launches"] = n
+    emb_record["launches"] = launches[4]
 
     k4_record = phase_k4(torch, k4)
     k4_record["launches"], err = phase_main(torch, k4)
     k4_record["max_abs_err"] = max(k4_record["max_abs_err"], err)
 
     print(card)
-    print(json.dumps({"kernels": [record, k2_record, *k3_records, k4_record]}))
+    print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,
+                                  k4_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3a-c and K4 on the card against their plain twins (needs
-a CUDA device).
+"""Kernels K1, K2, K3a-c, K4 and the embedding gradient on the card against
+their plain twins (needs a CUDA device).
 
 Marked `cuda`; skips on a host without a card. On a machine with one, and
 without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
@@ -10,7 +10,9 @@ Tolerances as between the reference's own front-end paths (float32 sums in
 another order); ZCR counts sign changes and must be equal. K3: rtol 1e-4,
 atol 2e-5 (float32 FMAs in another order than the plain twin's cuBLAS
 GEMMs, over up to 300 keys). K4: equal int8 values and scale bits (the
-same words, IEEE division).
+same words, IEEE division). The embedding gradient: rtol 1e-5, atol 1e-3
+against the plain twin in float64 (a float32 sum of up to ~130,000 rows of
+one id, taken in pieces of 64); bit for bit against a second run.
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 from tpu_deer_torch import stream as tstream
+from tpu_deer_torch.data.vocab import PAD_ID
+from tpu_deer_torch.kernels import embedding as emb
 from tpu_deer_torch.kernels import flash_attention as k3
 from tpu_deer_torch.kernels import mfcc_frames as k2
 from tpu_deer_torch.kernels import quantize_int8 as k4
@@ -171,6 +175,85 @@ def _check_k3(q, k, v, mask, do):
     for a, b_ in zip(leaves, plain):
         torch.testing.assert_close(a.grad, b_.grad, **tol)
     assert counts() == tuple(c + 2 for c in before)
+
+
+@pytest.mark.parametrize("kind", ["prefix", "hole", "last_tile", "far"])
+@pytest.mark.parametrize("b,h,tq,tk,d", [(2, 4, 100, 100, 32),
+                                         (3, 2, 130, 300, 64),
+                                         (2, 2, 77, 45, 32)])
+def test_k3a_repeats_and_all_masked_is_mean_of_v(device, b, h, tq, tk, d, kind):
+    """K3a twice on the same inputs gives the same bits (no atomics, a
+    fixed order); the all-masked element gets O = the mean of v over its Tk
+    keys and an lse that the backward reads as "no valid key"."""
+    if kind == "far":
+        tk = 2200
+    q, k, v, mask, _ = _k3_case(device, b, h, tq, tk, d, kind=kind)
+    o, lse = k3.flash_attention_fwd(q, k, v, mask)
+    o2, lse2 = k3.flash_attention_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    torch.testing.assert_close(o[-1], v[-1].mean(1, keepdim=True).expand_as(o[-1]),
+                               rtol=1e-4, atol=2e-5)
+    assert (lse[-1] < k3.NO_VALID_KEY).all() and (lse[:-1] > k3.NO_VALID_KEY).all()
+
+
+def _emb_case(device, kind):
+    """(ids, dX, V) on the card: 131,072 ids of which ~99% are PAD_ID with
+    D = 128 (the raw trainer's padded transcripts at the CLI's width), a
+    6-id vocabulary with every id repeated at D = 24, or a wide table (D =
+    200, two column groups) with an id never used."""
+    g = torch.Generator().manual_seed(len(kind))
+    if kind == "padding":
+        ids = torch.full((64, 2048), PAD_ID, dtype=torch.int64)
+        real = torch.randint(4, 17, (64,), generator=g)
+        for row, n in zip(ids, real):
+            row[:n] = torch.randint(1, 300, (int(n),), generator=g)
+        v, d = 300, 128
+    elif kind == "repeats":
+        v, d = 6, 24
+        ids = torch.randint(0, v, (5, 777), generator=g)
+    else:
+        v, d = 1000, 200
+        ids = torch.randint(0, v - 1, (3, 500), generator=g)
+    dx = torch.randn(*ids.shape, d, generator=g)
+    return ids.to(device), dx.to(device), v
+
+
+@pytest.mark.parametrize("kind", ["padding", "repeats", "wide"])
+def test_embedding_grad_matches_plain_and_repeats(device, kind):
+    ids, dx, v = _emb_case(device, kind)
+    before = emb.embedding_grad.launches
+    got = emb.embedding_grad(ids, dx, v)
+    again = emb.embedding_grad(ids, dx, v)
+    torch.cuda.synchronize()
+    assert emb.embedding_grad.launches == before + 2
+    assert torch.equal(got, again)
+    ref = emb.embedding_grad_plain(ids, dx.double(), v)
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-3)
+    unused = torch.ones(v, dtype=torch.bool, device=device)
+    unused[ids.reshape(-1)] = False
+    assert not got[unused].any()
+
+
+def test_embedding_lookup_on_card(device):
+    """The autograd function: one gradient launch a backward, the plain
+    function's values and gradient; a frozen table launches none."""
+    ids, dx, v = _emb_case(device, "repeats")
+    weight = torch.randn(v, dx.shape[-1], device=device)
+    w = weight.clone().requires_grad_()
+    wp = weight.clone().requires_grad_()
+    before = emb.embedding_grad.launches
+    out = emb.embedding_lookup(ids, w)
+    (out * dx).sum().backward()
+    assert emb.embedding_grad.launches == before + 1
+    ref = emb.embedding_lookup_plain(ids, wp)
+    (ref * dx).sum().backward()
+    assert emb.embedding_grad.launches == before + 1
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(w.grad, wp.grad, rtol=1e-5, atol=1e-4)
+    scale = torch.ones((), device=device, requires_grad=True)
+    (emb.embedding_lookup(ids, weight) * scale).sum().backward()
+    assert emb.embedding_grad.launches == before + 1 and scale.grad is not None
 
 
 @pytest.mark.parametrize("bad", ["d48", "non_contiguous", "float16"])

@@ -293,6 +293,27 @@ def test_dropout_draws_follow_the_trainer_seed():
     assert not all(torch.equal(params[0][k], params[2][k]) for k in init)
 
 
+def test_train_step_takes_deterministic_convolutions():
+    """A step's convolutions, forward and backward, run with cuDNN's
+    deterministic algorithms (its default backward varies by run on the
+    card), and the setting is restored after the step."""
+    _, (splits, vocab), _ = _corpora()
+    torch.manual_seed(0)
+    tm = RawSequenceDEERModel(vocab_size=vocab.vocab_size, **WIDTH)
+    tt = RawSequenceTrainer(tm, RawTrainingConfig(**TRAIN), device="cpu")
+    seen = []
+    conv = tm.video_encoder.convs[0].conv1
+    conv.register_forward_hook(
+        lambda *_: seen.append(torch.backends.cudnn.deterministic))
+    conv.register_full_backward_hook(
+        lambda *_: seen.append(torch.backends.cudnn.deterministic))
+    batch = tt._gather(tt._stage(splits["train"]), np.arange(4))
+    before = torch.backends.cudnn.deterministic
+    tt._train_step(batch)
+    assert seen == [True, True]
+    assert torch.backends.cudnn.deterministic == before
+
+
 def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -17,23 +17,18 @@
 //
 // A batch element whose whole key mask is 0 gets reference_attention's
 // function: O = the mean of v over its Tk keys, dq = dk = 0, dv += Σ dO / Tk.
-// K3a's key loop stops at Tk, so no padded key is ever scored; in such a row
-// every real key scores -1e30, gets p = 1 and l = Tk. Its lse, -1e30 +
-// log(Tk), rounds to -1e30 in float32, so the backward cannot recompute p
-// from it: lse < -5e29 marks "no valid key". K3b skips every key tile of
-// such an element (dq = 0); K3c detects it from lse and writes dv = Σ dO / Tk,
+// K3a finds no live key tile in such an element's mask row: it writes
+// O = Σ v / Tk, summed in a fixed order, and lse = -1e30 + log(Tk), which
+// rounds to -1e30 in float32. The backward cannot recompute p from that lse:
+// lse < -5e29 marks "no valid key". K3b skips every key tile of such an
+// element (dq = 0); K3c detects it from lse and writes dv = Σ dO / Tk,
 // dk = 0.
 //
 // What bounds them on an H100: operations. At the training shape (B·H = 256,
 // T = 2048, D = 32) K3a does 4·BH·T·D FLOP for each valid key, K3b 6 and K3c
 // 8, against ~0.3 GB of inputs and outputs: 100-500 FLOP a byte.
 //
-// K3a scores every key, masked or not, with float32 FMAs: one thread owns
-// one query row in registers and the keys stream through shared memory in
-// tiles of 64 rows, read back as 16-byte broadcast loads. The 67 TFLOP/s
-// non-tensor-core float32 rate is its floor.
-//
-// K3b and K3c run every product on the tensor cores, as wgmma.mma_async
+// All three run every product on the tensor cores, as wgmma.mma_async
 // with tf32 operands, in 3xTF32: each operand x is split into hi, x with its
 // 13 low mantissa bits cleared (the tensor core reads a float32 operand as
 // tf32 by ignoring those bits, so a raw float32 tile serves as hi), and
@@ -43,31 +38,39 @@
 // tensor-core products for each float32 one: their floor is 3 × the
 // operations over 495 TFLOP/s, 2.4× below the float32 FMA floor.
 //   - One warpgroup (128 threads) a block owns 64 rows of its side (query
-//     rows in K3b, key rows in K3c) and streams the other side in tiles,
-//     double-buffered through cp.async: the next tile's copy runs while the
-//     current tile's products do. The products that need only the raw
-//     tiles are issued first, and the lo and transposed tiles are split out
-//     while they run.
+//     rows in K3a and K3b, key rows in K3c) and streams the other side in
+//     tiles, double-buffered through cp.async: the next tile's copy runs
+//     while the current tile's products do. The products that need only the
+//     raw tiles are issued first, and the lo and transposed tiles are split
+//     out while they run.
 //   - Key tiles with no valid key are skipped, for any mask (not only a
-//     prefix): K3b reads which of the next 32 key tiles are live with one
-//     block-wide OR over its mask row and loops over those; a K3c block
-//     whose 64 keys are all masked writes dk = dv = 0 and returns (or takes
-//     the all-masked element's values above).
+//     prefix): K3a and K3b read which of the next 32 key tiles are live
+//     with one block-wide OR over their mask row and loop over those; a K3c
+//     block whose 64 keys are all masked writes dk = dv = 0 and returns (or
+//     takes the all-masked element's values above). A masked key inside a
+//     live tile scores -1e30, which gives p = 0 beside the tile's valid key,
+//     so a skipped tile changes only the order of the sums.
+//   - K3a's online softmax runs on the S accumulator: a thread holds two
+//     query rows of it, so the row maximum and the row sum take a shuffle
+//     across the 4 lanes of a row group. A key past Tk (the ragged last
+//     tile) gets p = 0.
 //   - wgmma takes 32-bit operands K-major only, so the operand of a
-//     product that reduces over keys or queries (k in dq = ds·k, q and dO in
-//     dk = dsᵀ·q and dv = pᵀ·dO) is transposed in shared memory from the
-//     staged tile. p and ds leave the accumulator of one product and enter
-//     the next as its register A operand: the accumulator holds columns 2t
-//     and 2t+1 of each group of 8 where the A fragment wants t and t+4, so
-//     the transposed tiles store the rows of each group of 8 in the order
-//     0 2 4 6 1 3 5 7 and no value moves between threads.
+//     product that reduces over keys or queries (v in O = p·v, k in
+//     dq = ds·k, q and dO in dk = dsᵀ·q and dv = pᵀ·dO) is transposed in
+//     shared memory from the staged tile. p and ds leave the accumulator of
+//     one product and enter the next as its register A operand: the
+//     accumulator holds columns 2t and 2t+1 of each group of 8 where the A
+//     fragment wants t and t+4, so the transposed tiles store the rows of
+//     each group of 8 in the order 0 2 4 6 1 3 5 7 and no value moves
+//     between threads.
 //   - The tensor core's float32 accumulation truncates; a sum over a whole
 //     row of tiles (2,048 queries in dv) drifted past K3_TOL that way where
-//     p is large. So each tile's dq, dk, dv product starts from zero and
+//     p is large. So each tile's O, dq, dk, dv product starts from zero and
 //     joins the running sum in ordinary float32 adds.
 //   - Operand tiles are in wgmma's no-swizzle K-major layout: core matrices
 //     of 8 rows × 4 floats (128 contiguous bytes).
-// dq is written by its own block (no atomics), so runs repeat bit for bit.
+// O, lse and dq are written by their own block (no atomics), so runs repeat
+// bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,146 +79,11 @@
 namespace {
 
 constexpr int kRows = 64;      // query (K3a, K3b) or key (K3c) rows a block
-constexpr int kTile = 64;      // K3a: keys a shared-memory tile
-constexpr int kChunk = 16;     // K3a: keys scored at a time, in registers
 constexpr float kNegInf = -1e30f;          // the masked-score fill, as on TPU
 constexpr float kNoValidKey = 0.5f * kNegInf;  // lse below this: all masked
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// a · b over D floats; a in registers, b in shared memory (16-byte aligned).
-template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D], const float* b) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + d);
-    s0 = fmaf(a[d], x.x, s0);
-    s1 = fmaf(a[d + 1], x.y, s1);
-    s2 = fmaf(a[d + 2], x.z, s2);
-    s3 = fmaf(a[d + 3], x.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-// acc += w · b over D floats; b in shared memory (16-byte aligned).
-template <int D>
-__device__ __forceinline__ void axpy(float (&acc)[D], float w, const float* b) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + d);
-    acc[d] = fmaf(w, x.x, acc[d]);
-    acc[d + 1] = fmaf(w, x.y, acc[d + 1]);
-    acc[d + 2] = fmaf(w, x.z, acc[d + 2]);
-    acc[d + 3] = fmaf(w, x.w, acc[d + 3]);
-  }
-}
-
-// A row of D floats from device memory into registers (zeros when !live).
-template <int D>
-__device__ __forceinline__ void load_row(float (&r)[D], const float* src,
-                                         bool live, float mul = 1.f) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live) x = __ldg(reinterpret_cast<const float4*>(src + d));
-    r[d] = x.x * mul;
-    r[d + 1] = x.y * mul;
-    r[d + 2] = x.z * mul;
-    r[d + 3] = x.w * mul;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&r)[D],
-                                          float mul) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4)
-    *reinterpret_cast<float4*>(dst + d) =
-        make_float4(r[d] * mul, r[d + 1] * mul, r[d + 2] * mul, r[d + 3] * mul);
-}
-
-// Rows [r0, r0 + n) of a [*, D] array into a [kTile, D] shared tile; rows
-// past n are zeros. Called by all kRows threads of the block.
-template <int D>
-__device__ __forceinline__ void stage(float* tile, const float* src, int r0,
-                                      int n) {
-  constexpr int kVecs = kTile * D / 4;
-  for (int i = threadIdx.x; i < kVecs; i += kRows) {
-    const int r = i / (D / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n)
-      x = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r0) * D) + i);
-    reinterpret_cast<float4*>(tile)[i] = x;
-  }
-}
-
-// K3a: one block per (bh, 64 query rows), one thread per query row.
-template <int D>
-__global__ void __launch_bounds__(kRows)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ mask,
-           float* __restrict__ o, float* __restrict__ lse, int H, int Tq,
-           int Tk, float scale) {
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-  __shared__ float ms[kTile];
-  const int bh = blockIdx.x;
-  const int row = blockIdx.y * kRows + threadIdx.x;
-  const bool live = row < Tq;
-  const size_t qoff = (static_cast<size_t>(bh) * Tq + row) * D;
-  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
-  const float* mrow = mask + static_cast<size_t>(bh / H) * Tk;
-
-  float qr[D], acc[D];
-  load_row<D>(qr, q + qoff, live, scale);
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  for (int t0 = 0; t0 < Tk; t0 += kTile) {
-    const int n = min(kTile, Tk - t0);
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(ks, kb, t0, n);
-    stage<D>(vs, vb, t0, n);
-    for (int j = threadIdx.x; j < kTile; j += kRows)
-      ms[j] = j < n ? mrow[t0 + j] : 0.f;
-    __syncthreads();
-    for (int c = 0; c < n; c += kChunk) {
-      float s[kChunk];
-      float cmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int jj = c + j;
-        const float x = dot<D>(qr, ks + jj * D);
-        // Keys past Tk do not exist (p = 0); masked keys score -1e30.
-        s[j] = jj < n ? (ms[jj] > 0.f ? x : kNegInf) : -INFINITY;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = expf(s[j] - m_new);
-        l += p;
-        axpy<D>(acc, p, vs + (c + j) * D);
-      }
-      m = m_new;
-    }
-  }
-  if (live) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    store_row<D>(o + qoff, acc, 1.f / l_safe);
-    lse[static_cast<size_t>(bh) * Tq + row] = m + logf(l_safe);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3b and K3c: wgmma (tf32, 3xTF32) with cp.async double buffering.
-// ---------------------------------------------------------------------------
 constexpr int kThreads = 128;  // one warpgroup a block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -549,11 +417,29 @@ __device__ __forceinline__ void store_acc(float* dst, const float (&acc)[D / 2],
     }
 }
 
-// Rows of the streamed tile: keys in K3b (64 at D = 32, 32 at D = 64),
-// queries in K3c (32).
+// Rows of the streamed tile: keys in K3a and K3b (64 at D = 32, 32 at
+// D = 64), queries in K3c (32).
 template <int D>
 constexpr int kDqRows = D == 32 ? 64 : 32;
 constexpr int kDkvRows = 32;
+
+// Key tile j of K, V and the mask row into a stage ([BN, D] K, [BN, D] V,
+// [BN] mask); keys past Tk are zeros.
+template <int BN, int D>
+__device__ __forceinline__ void stage_kv(float* st, const float* kb, const float* vb,
+                                         const float* mrow, int j, int Tk) {
+  const int n = min(BN, Tk - j * BN);
+  const size_t off = static_cast<size_t>(j) * BN;
+  stage_rows<BN, D>(st, kb + off * D, n);
+  stage_rows<BN, D>(st + BN * D, vb + off * D, n);
+  stage_vec<BN>(st + 2 * BN * D, mrow + off, n);
+}
+
+// K3a: Q (+ lo); 2 stages of K, V, mask; lo of K; Vᵀ (+ lo); a word.
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (2 * 64 * D + 7 * kDqRows<D> * D + 2 * kDqRows<D> + 1);
+}
 
 // K3b: Q, dO (+ lo); 2 stages of K, V, mask; lo of K, V; Kᵀ (+ lo); lse, δ;
 // a word.
@@ -566,6 +452,176 @@ constexpr size_t dq_smem() {
 template <int D>
 constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * 64 * D + 10 * kDkvRows * D + 4 * kDkvRows);
+}
+
+// K3a: one block per (bh, 64 query rows). Loops over the live key tiles
+// only; an element with none (all keys masked) gets O = the mean of v.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ mask,
+           float* __restrict__ o, float* __restrict__ lse, int H, int Tq,
+           int Tk, float scale) {
+  constexpr int BN = kDqRows<D>, kT = BN * D;
+  constexpr int kStage = 2 * kT + BN;  // K, V, mask
+  extern __shared__ __align__(128) float sm[];
+  float* qs = sm;                 // [64, D]
+  float* q_lo = qs + 64 * D;
+  float* ring = q_lo + 64 * D;    // 2 stages
+  float* k_lo = ring + 2 * kStage;
+  float* vt = k_lo + kT;          // Vᵀ [D, BN]
+  float* vt_lo = vt + kT;
+  unsigned* word = reinterpret_cast<unsigned*>(vt_lo + kT);
+
+  const int bh = blockIdx.x, q0 = blockIdx.y * 64, nq = min(64, Tq - q0);
+  const size_t qoff = (static_cast<size_t>(bh) * Tq + q0) * D;
+  const size_t soff = static_cast<size_t>(bh) * Tq + q0;
+  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
+  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * Tk;
+  const int n_tiles = (Tk + BN - 1) / BN;
+  const int tid = threadIdx.x;
+
+  stage_rows<64, D>(qs, q + qoff, nq);  // in flight while the mask is read
+  int w0 = -32;  // no window of live tiles read yet
+  uint32_t bits = 0;
+  int j = next_live<BN>(mrow, 0, n_tiles, Tk, w0, bits, word);
+  if (j == n_tiles) {
+    // All-masked element: the softmax of a row of -1e30 is 1/Tk on every key.
+    cp_commit();
+    cp_wait();  // the q copy lands before its shared memory is reused
+    __syncthreads();
+    float* part = sm;  // [kThreads]
+    const int c = tid % D;
+    float sum = 0.f;
+    for (int r = tid / D; r < Tk; r += kThreads / D) sum += vb[static_cast<size_t>(r) * D + c];
+    part[tid] = sum;
+    __syncthreads();
+    if (tid < D) {
+      for (int i = tid + D; i < kThreads; i += D) sum += part[i];
+      part[tid] = sum / static_cast<float>(Tk);
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * D; i += kThreads) o[qoff + i] = part[i % D];
+    if (tid < nq) lse[soff + tid] = kNegInf + logf(static_cast<float>(Tk));
+    return;
+  }
+  stage_kv<BN, D>(ring, kb, vb, mrow, j, Tk);
+  cp_commit();
+  cp_wait();
+  __syncthreads();
+  split_lo<64 * D>(q_lo, qs);
+  proxy_fence();
+
+  // Scores in log2 units, s · scale·log2 e: a masked key -1e30 (p = 0,
+  // since every tile here holds a valid key), a key past Tk -inf. A thread
+  // holds rows f.r0 + 8h (h = 0, 1); m is the row's maximum so far, l this
+  // thread's share of the row sum (the 4 lanes' shares are added at the
+  // end: every rescaling is the same on all 4).
+  const Frag f;
+  const float c1 = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+  zero(acc);
+  int st = 0;
+  while (j < n_tiles) {
+    const float* kh = ring + st * kStage;
+    const float* vh = kh + kT;
+    const float* ms = vh + kT;
+    cp_wait();
+    proxy_fence();
+    __syncthreads();  // tile j has landed; the previous tile's products are done
+
+    float s[BN / 2];
+    zero(s);
+    pin(s);
+    wg_fence();
+    mma_ss_a<BN, D>(s, qs, q_lo, kh);  // S = Q Kᵀ
+    wg_commit();
+    // Meanwhile: the next live tile's copy, and K's lo.
+    const int jn = next_live<BN>(mrow, j + 1, n_tiles, Tk, w0, bits, word);
+    if (jn < n_tiles) stage_kv<BN, D>(ring + (st ^ 1) * kStage, kb, vb, mrow, jn, Tk);
+    cp_commit();
+    split_lo<kT>(k_lo, kh);
+    proxy_fence();
+    __syncthreads();
+    mma_ss_b<BN, D>(s, qs, k_lo);
+    wg_commit();
+    split_t<BN, D>(vt, vt_lo, vh);  // meanwhile: Vᵀ for O += P V
+    proxy_fence();
+    wg_wait();
+    pin(s);
+    __syncthreads();
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const float2 mk = *reinterpret_cast<const float2*>(ms + 8 * jj + f.c);  // 0 past Tk
+      const int key = j * BN + 8 * jj + f.c;
+      const bool valid[2] = {mk.x > 0.f, mk.y > 0.f};
+      const float dead[2] = {key < Tk ? kNegInf : -INFINITY,
+                             key + 1 < Tk ? kNegInf : -INFINITY};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * h + e;
+          s[i] = valid[e] ? s[i] * c1 : dead[e];
+          mx[h] = fmaxf(mx[h], s[i]);
+        }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the row's maximum over its 4 lanes
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2_approx(m[h] - mx[h]);  // 0 on the first live tile
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      s[i] = exp2_approx(s[i] - m[h]);  // p
+      l[h] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    float p_lo[BN / 2], t[D / 2];
+    split_regs(s, p_lo);
+    zero(t);
+    pin(s);
+    pin(p_lo);
+    pin(t);
+    wg_fence();
+    mma3_rs<D, BN>(t, s, p_lo, vt, vt_lo);  // this tile's P V
+    wg_commit();
+    wg_wait();
+    pin(t);
+    pin(s);
+    pin(p_lo);
+    promote(acc, t);
+    j = jn;
+    st ^= 1;
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / l[h];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= inv[(i >> 1) & 1];
+  store_acc<D>(o + qoff, acc, nq, 1.f);
+  if ((tid & 3) == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = f.r0 + 8 * h;
+      if (r < nq) lse[soff + r] = m[h] * kLn2 + logf(l[h]);
+    }
 }
 
 // K3b: one block per (bh, 64 query rows); writes δ = rowsum(dO ∘ O) for K3c
@@ -600,20 +656,13 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + static_cast<size_t>(bh) * Tk * D;
   const float* mrow = mask + static_cast<size_t>(bh / H) * Tk;
   const int n_tiles = (Tk + BN - 1) / BN;
-  auto stage_kv = [&](float* st, int j) {
-    const int n = min(BN, Tk - j * BN);
-    const size_t off = static_cast<size_t>(j) * BN;
-    stage_rows<BN, D>(st, kb + off * D, n);
-    stage_rows<BN, D>(st + kT, vb + off * D, n);
-    stage_vec<BN>(st + 2 * kT, mrow + off, n);
-  };
 
   stage_rows<64, D>(qs, q + qoff, nq);
   stage_rows<64, D>(os, dout + qoff, nq);
   int w0 = -32;  // no window of live tiles read yet
   uint32_t bits = 0;
   int j = next_live<BN>(mrow, 0, n_tiles, Tk, w0, bits, word);
-  if (j < n_tiles) stage_kv(ring, j);
+  if (j < n_tiles) stage_kv<BN, D>(ring, kb, vb, mrow, j, Tk);
   cp_commit();
 
   {  // δ: two threads a row, D/2 columns each
@@ -675,7 +724,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     wg_commit();
     // Meanwhile: the next live tile's copy, and K's and V's lo.
     const int jn = next_live<BN>(mrow, j + 1, n_tiles, Tk, w0, bits, word);
-    if (jn < n_tiles) stage_kv(ring + (st ^ 1) * kStage, jn);
+    if (jn < n_tiles) stage_kv<BN, D>(ring + (st ^ 1) * kStage, kb, vb, mrow, jn, Tk);
     cp_commit();
     split_lo<kT>(k_lo, kh);
     split_lo<kT>(v_lo, vh);
@@ -911,8 +960,21 @@ dim3 grid_for(int B, int H, int T) {
   return dim3(static_cast<unsigned>(B * H), static_cast<unsigned>((T + kRows - 1) / kRows));
 }
 
-// K3b and K3c take more than 48 KB of shared memory: dynamic, after raising
-// the kernel's limit.
+// K3a-c take more than 48 KB of shared memory: dynamic, after raising the
+// kernel's limit.
+template <int D>
+cudaError_t launch_fwd(dim3 grid, cudaStream_t stream, const float* q, const float* k,
+                       const float* v, const float* mask, float* o, float* lse, int H,
+                       int Tq, int Tk) {
+  constexpr size_t bytes = fwd_smem<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(q, k, v, mask, o, lse, H, Tq, Tk, scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(dim3 grid, cudaStream_t stream, const float* q, const float* k,
                       const float* v, const float* mask, const float* o,
@@ -961,13 +1023,9 @@ int flash_fwd_launch(int device, const float* q, const float* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-  const dim3 grid = grid_for(B, H, Tq);
-  if (D == 32)
-    fwd_kernel<32><<<grid, kRows, 0, stream>>>(q, k, v, mask, o, lse, H, Tq, Tk, scale);
-  else
-    fwd_kernel<64><<<grid, kRows, 0, stream>>>(q, k, v, mask, o, lse, H, Tq, Tk, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      D == 32 ? launch_fwd<32>(grid_for(B, H, Tq), stream, q, k, v, mask, o, lse, H, Tq, Tk)
+              : launch_fwd<64>(grid_for(B, H, Tq), stream, q, k, v, mask, o, lse, H, Tq, Tk));
 }
 
 // K3b: (q, k, v, mask, o, dout, lse) → (delta, dq).

@@ -20,8 +20,10 @@ from tpu_deer_torch.kernels.flash_attention import flash_attention
 from tpu_deer_torch.models.layers import MLP
 
 # Key lengths at which use_flash="auto" picks the flash kernels, kept equal
-# to the reference's so that both packages dispatch alike. chip_smoke.py
-# prints the H100 crossover against PyTorch's SDPA; it is not applied here.
+# to the reference's so that both packages dispatch alike. The flash branch
+# skips attention-probability dropout (as the reference's does), so a lower
+# threshold would drop that dropout at lengths where the reference keeps it;
+# chip_smoke.py prints the H100 crossover against PyTorch's SDPA beside.
 FLASH_AUTO_INFER_T = 2048
 FLASH_AUTO_TRAIN_T = 1024
 

@@ -8,7 +8,8 @@ Port of `tpu_deer/models/encoders.py`:
     pooling → MLP + LayerNorm), `VideoSequenceEncoder` (frames
     [B, T, H, W, C], channels last as in the reference → conv blocks →
     global average pool → two temporal convs → attention pooling) and
-    `TextSequenceEncoder` (token ids → embedding + sinusoidal positions →
+    `TextSequenceEncoder` (token ids → embedding, whose gradient repeats bit
+    for bit on the card (`kernels/embedding.py`), + sinusoidal positions →
     pre-norm transformer blocks, whose attention takes kernel K3 from a key
     length of 1024 in training and 2048 at inference → attention pooling).
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_deer_torch.kernels.embedding import embedding_lookup
 from tpu_deer_torch.models.attention import MultiHeadAttention
 from tpu_deer_torch.models.layers import LN_EPS, MLP, ResidualBlock
 
@@ -217,7 +219,7 @@ class TextSequenceEncoder(nn.Module):
     def forward(self, token_ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 return_sequence: bool = False):
-        x = self.embed(token_ids.long())
+        x = embedding_lookup(token_ids.long(), self.embed.weight)
         x = x + sinusoidal_positions(token_ids.shape[1], self.model_dim,
                                      x.device)[None]
         bool_mask = mask.to(torch.bool) if mask is not None else None

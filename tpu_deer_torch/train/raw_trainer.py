@@ -19,7 +19,9 @@ outputs. The clip and the optimizer are the reference's optax chain,
 every gradient, frozen parameters included.
 
 Dropout draws from the trainer's own generator, seeded from `config.seed`
-(`train/rng.py:seeded_dropout`), so two runs with one seed repeat.
+(`train/rng.py:seeded_dropout`), and a step's convolutions take cuDNN's
+deterministic algorithms (`deterministic_convolutions`), so two runs with
+one seed repeat bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from tpu_deer_torch.ops.audio_frontend import (
     audio_frame_features_batch,
 )
 from tpu_deer_torch.train.optim import AdamW
-from tpu_deer_torch.train.rng import seeded_dropout
+from tpu_deer_torch.train.rng import deterministic_convolutions, seeded_dropout
 
 BATCH_KEYS = ("signal", "video_frames", "token_ids", "token_mask", "labels")
 
@@ -97,13 +99,15 @@ class RawSequenceTrainer:
 
     def _train_step(self, batch: dict) -> torch.Tensor:
         self.model.train()
-        with seeded_dropout(self.generator, self.device):
-            out = self._forward(batch)
-        params = [out[f"{n}_params"] for n in self.model.dim_names]
-        loss = loss_lib.multi_task_deer_loss(params, batch["labels"],
-                                             self.loss_config)["total_loss"]
-        self.optimizer.step(torch.autograd.grad(
-            loss, list(self._params.values()), allow_unused=True))
+        with deterministic_convolutions():
+            with seeded_dropout(self.generator, self.device):
+                out = self._forward(batch)
+            params = [out[f"{n}_params"] for n in self.model.dim_names]
+            loss = loss_lib.multi_task_deer_loss(params, batch["labels"],
+                                                 self.loss_config)["total_loss"]
+            grads = torch.autograd.grad(loss, list(self._params.values()),
+                                        allow_unused=True)
+        self.optimizer.step(grads)
         return loss.detach()
 
     # -- data --------------------------------------------------------------

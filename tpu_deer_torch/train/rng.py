@@ -1,4 +1,5 @@
-"""Seeded dropout draws for the trainers.
+"""Seeded dropout draws, and a step that repeats bit for bit, for the
+trainers.
 
 The reference's trainers draw dropout from a key split off their seed every
 step, so two runs with one seed repeat, and a checkpoint holds the key.
@@ -12,6 +13,14 @@ and restores it on exit. So the draws depend only on the trainer's seed and
 its step, nothing outside the trainer sees or moves them, the models stay
 the same modules that serving runs, and the generator's state (a uint8
 tensor) is all a checkpoint needs to repeat them.
+
+A seeded step repeats only if its sums do too. The reference's gradients
+are XLA's, which give the same bits on every run. On the card, cuDNN's
+default convolution backward (the raw model's video encoder) adds in an
+order that varies by run; `deterministic_convolutions` picks its
+deterministic algorithms for the body of a step and restores the setting
+after, so nothing outside the step changes. (The token-embedding gradient
+has a kernel of its own for the same reason, `kernels/embedding.py`.)
 """
 
 from __future__ import annotations
@@ -36,3 +45,15 @@ def seeded_dropout(generator: torch.Generator, device: torch.device):
         else:
             torch.default_generator.manual_seed(seed)
         yield
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """Run the body with cuDNN's deterministic convolution algorithms, then
+    restore the previous setting."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
