@@ -8,9 +8,13 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
 (into build/kernels, one nvcc per source, all started together), then:
 
   1. card   — prints the card's name and power limit and the build time;
-  2. K1     — the fused MFCC-from-signal kernel against its plain PyTorch
-              twin on the card at B ∈ {1, 64} × the four length buckets plus
-              one odd length, and its time beside the plain twin's and its
+  2. K1     — the fused MFCC-from-signal kernel (a shared-memory FFT)
+              against its plain PyTorch twin on the card at B ∈ {1, 64} ×
+              the four length buckets plus one odd length, and on silence,
+              a DC offset, a tone at the Nyquist bin and an impulse (with
+              noise) at n_fft 512, 1024 and 2048; each output equal bit for
+              bit across two runs; n_fft 768 refused; its registers and
+              shared memory; its time beside the plain twin's and its
               bound;
   3. slice  — the flagship model (3,918,324 params, seeded init) behind
               MultimodalFeatureExtractor → InferenceEngine.predict on 300
@@ -20,7 +24,10 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               predictions from the kernel match those from the plain twin;
   4. K2     — the fused MFCC-from-frames kernel against its plain twin at
               R ∈ {16, 4096, 597} rows of n_fft 1024 and 597 rows of n_fft
-              512, and its time at the tick's 4096 rows beside its bound;
+              512, and on the same edge cases at n_fft 512 and 1024; bit for
+              bit across two runs; n_fft 768 refused; its registers and
+              shared memory; its time at the tick's 4096 rows beside its
+              bound;
   5. stream — a StreamingRecognizer over the flagship at 256 streams, chunk
               4096, with an OOD detector: 8 ticks (one with inactive slots,
               one after a reset), one K2 launch per tick, kernel path vs
@@ -285,13 +292,86 @@ def voice(rng, n, f0):
     return (0.3 * sig + 0.01 * rng.normal(size=n)).astype(np.float32)
 
 
+def edge_signal(kind, n, rng):
+    """[n] float32: silence, a DC offset, a tone at the Nyquist bin
+    (alternating ±0.4) or an impulse, all but silence with voice()'s noise
+    (0.01): a noiseless tone leaves float noise in empty mel bands, where
+    the log amplifies it."""
+    if kind == "zero":
+        return np.zeros(n, dtype=np.float32)
+    sig = 0.01 * rng.normal(size=n)
+    if kind == "dc":
+        sig += 0.5
+    elif kind == "nyquist":
+        sig += 0.4 * (-1.0) ** np.arange(n)
+    else:
+        sig[n // 3] += 1.0
+    return sig.astype(np.float32)
+
+
+EDGE_KINDS = ("zero", "dc", "nyquist", "impulse")
+
+
+def check_mfcc(torch, label, got, ref, kind=None):
+    """K1/K2 outputs against the plain twin's within K1_TOL (finite, same
+    shapes; silence: power exactly 0); returns the max abs errors."""
+    errs = []
+    for name, g, r, (rtol, atol) in zip(
+            ("mfcc", "logmel", "power", "timefeats"), got, ref, K1_TOL):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: shape {tuple(g.shape)} or "
+                                 f"non-finite values")
+        errs.append(check_close(f"{label} {name}", g, r, rtol, atol))
+    if kind == "zero" and (got[2].any() or ref[2].any()):
+        raise AssertionError(f"{label}: power of silence is not 0")
+    return errs
+
+
+def check_repeat(torch, label, fn):
+    """fn() twice: every output equal bit for bit (no atomics, fixed sums)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: output {i} differs between two "
+                                 f"runs")
+    return first
+
+
+def ptxas_usage(report, kernel):
+    """["<kernel><n>: R registers, S B spill stores, ..."] from nvcc's
+    -Xptxas -v report for the instances of `kernel` (a name in the mangled
+    entry), [] when the library was already built."""
+    lines, fn = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            fn = None
+            if kernel in name:
+                fn = f"{kernel}<{name.split('ILi')[1].split('E')[0]}>"
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "registers" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            lines.append(f"{fn}: {regs}, {spill}")
+            fn = None
+    return lines
+
+
+def fft_flops(cfg, frames):
+    """The FFT design's own float operations for `frames` frames: windowing
+    (n_fft), an M = n_fft/2-point complex FFT (5 M log2 M), the real split
+    (16 a bin) and the power (3 a bin)."""
+    m = cfg.n_fft // 2
+    return frames * (cfg.n_fft + 5 * m * math.log2(m) + 19 * (m + 1))
+
+
 def k1_work(cfg, b, tp, n, mel_nnz):
     """(FLOPs, bytes) that K1's function needs at the least, on b signals of
     tp padded samples and n frames each.
 
-    The DFT is counted at a real FFT's cost, 2.5 n_fft log2(n_fft) per frame
-    (K1 itself does the dense product, 4 n_fft n_bins), and the mel product
-    at the filterbank's nonzeros. Bytes: the signal read once, the four
+    The DFT is counted at a real FFT's cost, 2.5 n_fft log2(n_fft) per frame,
+    and the mel product at the filterbank's nonzeros. Bytes: the signal read once, the four
     outputs written once, and the window, mel and DCT bases (an FFT needs no
     DFT matrices)."""
     bins, mels, ceps, fft = cfg.n_bins, cfg.n_mels, cfg.n_mfcc, cfg.n_fft
@@ -309,8 +389,9 @@ def k1_work(cfg, b, tp, n, mel_nnz):
     return flops, 4 * (b * tp + bases + outputs)
 
 
-def phase_kernel(torch, taf, k1):
-    """K1 against its plain twin on the card; returns the kernels record."""
+def phase_kernel(torch, taf, k1, report):
+    """K1 against its plain twin on the card; returns the kernels record.
+    `report` is nvcc's for K1's library ("" if it was built already)."""
     cfg = taf.AudioFrontendConfig()
     bases = taf._device_bases(cfg, torch.device("cuda"))
     rng = np.random.default_rng(SEED)
@@ -321,26 +402,50 @@ def phase_kernel(torch, taf, k1):
         sig = np.stack([voice(rng, n, rng.uniform(90, 300)) for _ in range(b)])
         x_pad, frames = taf._pad_for_frames(torch.from_numpy(sig).cuda(), cfg)
         before = k1.mfcc_signal.launches
-        got = k1.mfcc_signal(x_pad, bases, cfg.n_fft, cfg.hop_length)
-        torch.cuda.synchronize()
-        if k1.mfcc_signal.launches != before + 1:
-            raise AssertionError("mfcc_signal did not count its launch")
+        got = check_repeat(torch, f"K1 B={b} T={n}", lambda: k1.mfcc_signal(
+            x_pad, bases, cfg.n_fft, cfg.hop_length))
+        if k1.mfcc_signal.launches != before + 2:
+            raise AssertionError("mfcc_signal did not count its launches")
         ref = k1.mfcc_signal_plain(x_pad, bases, cfg.n_fft, cfg.hop_length)
-        errs = []
-        for name, g, r, (rtol, atol) in zip(
-                ("mfcc", "logmel", "power", "timefeats"), got, ref, K1_TOL):
-            if g.shape != r.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"{name}: shape {tuple(g.shape)} or "
-                                     f"non-finite values")
-            errs.append(check_close(f"K1 {name} B={b} T={n}", g, r, rtol, atol))
+        errs = check_mfcc(torch, f"K1 B={b} T={n}", got, ref)
         if not torch.equal(got[3][..., 1], ref[3][..., 1]):
             raise AssertionError(f"K1 ZCR differs from the plain twin, B={b} T={n}")
         max_err = max(max_err, *errs)
         print(f"K1 vs plain B={b} T={n} N={frames}: max abs err mfcc "
               f"{errs[0]:.3e} logmel {errs[1]:.3e} power {errs[2]:.3e} "
-              f"timefeats {errs[3]:.3e}; ZCR equal")
+              f"timefeats {errs[3]:.3e}; ZCR equal; bit-equal across 2 runs")
         if (b, n) == (64, 4 * SR):
             main = (x_pad, frames)
+
+    # The FFT's edge cases at each n_fft the kernel takes.
+    for n_fft in k1.SUPPORTED_N_FFT:
+        ecfg = taf.AudioFrontendConfig(n_fft=n_fft)
+        ebases = taf._device_bases(ecfg, torch.device("cuda"))
+        for kind in EDGE_KINDS:
+            sig = np.stack([edge_signal(kind, 24017, rng) for _ in range(3)])
+            x_pad, _ = taf._pad_for_frames(torch.from_numpy(sig).cuda(), ecfg)
+            label = f"K1 {kind} n_fft={n_fft}"
+            got = check_repeat(torch, label, lambda: k1.mfcc_signal(
+                x_pad, ebases, n_fft, ecfg.hop_length))
+            ref = k1.mfcc_signal_plain(x_pad, ebases, n_fft, ecfg.hop_length)
+            errs = check_mfcc(torch, label, got, ref, kind)
+            if not torch.equal(got[3][..., 1], ref[3][..., 1]):
+                raise AssertionError(f"{label}: ZCR differs from the plain twin")
+            max_err = max(max_err, *errs)
+        print(f"K1 edge cases n_fft={n_fft} ({', '.join(EDGE_KINDS)}; B=3 "
+              f"T=24017): within K1_TOL, ZCR equal, silence's power 0, "
+              f"bit-equal across 2 runs")
+    odd = taf.AudioFrontendConfig(n_fft=768)
+    x_odd, _ = taf._pad_for_frames(torch.zeros(1, 8000, device="cuda"), odd)
+    before = k1.mfcc_signal.launches
+    try:
+        k1.mfcc_signal(x_odd, taf._device_bases(odd, torch.device("cuda")),
+                       768, odd.hop_length)
+        raise AssertionError("K1 took n_fft 768")
+    except ValueError as err:
+        if "power-of-two" not in str(err) or k1.mfcc_signal.launches != before:
+            raise
+    print("K1 n_fft 768 (not a power of two): refused before any launch")
 
     # Timing at the main path's shape: one 4 s bucket of 64 utterances.
     x_pad, frames = main
@@ -352,17 +457,26 @@ def phase_kernel(torch, taf, k1):
         x_pad, cfg.n_fft, cfg.hop_length, window=window, center=False,
         return_complex=True).abs().square())
     b, tp = x_pad.shape
+    kernel_dev = device_ms(torch, run(k1.mfcc_signal), expect=("mfcc_signal",))
     mel_nnz = int(torch.count_nonzero(bases["mel"]))
     flops, nbytes = k1_work(cfg, b, tp, frames, mel_nnz)
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    dense = b * frames * 4 * cfg.n_fft * cfg.n_bins
-    print(f"K1 at B=64, 4 s bucket (N={frames}): kernel {kernel_ms:.4f} ms, "
-          f"plain twin {plain_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
+    fft = fft_flops(cfg, b * frames)
+    smem, blocks = k1.launch_config(0, cfg.n_fft, cfg.n_mels, cfg.n_mfcc)
+    tiles = b * -(-frames // 8)
+    print(f"K1 at B=64, 4 s bucket (N={frames}): kernel {kernel_ms:.4f} ms "
+          f"between CUDA events, {ms_text(kernel_dev)} on the device, plain "
+          f"twin {plain_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
           f"({flops / 1e9:.4f} GFLOP f32 at FFT cost -> {t_ops:.4f} ms, "
           f"{nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms)")
-    print(f"informational, not the bound: K1's dense DFT alone is "
-          f"{dense / 1e9:.2f} GFLOP -> {dense / F32_FLOPS * 1e3:.4f} ms at the "
-          f"f32 rate")
+    print(f"informational, not the bound: K1's FFT (window, 5 M log2 M for "
+          f"M = {cfg.n_fft // 2}, real split and power) is {fft / 1e9:.4f} "
+          f"GFLOP -> {fft / F32_FLOPS * 1e3:.4f} ms at the f32 rate")
+    print(f"K1 launch: {blocks} blocks of 256 threads resident ({blocks // 132}"
+          f" a SM on 132), grid {min(blocks, tiles)} over {tiles} tiles of 8 "
+          f"frames, {smem} B of dynamic shared memory a block")
+    for line in ptxas_usage(report, "mfcc_signal_kernel") or ["not rebuilt"]:
+        print(f"K1 ptxas: {line}")
     print(f"informational, not the same function: torch.stft power spectrum "
           f"only, same shape: {stft_ms:.4f} ms")
     return {
@@ -496,8 +610,9 @@ def voiced_frames(torch, taf, rng, cfg, rows):
     return frames[:rows].contiguous()
 
 
-def phase_k2(torch, taf, k2):
-    """K2 against its plain twin on the card; returns the kernels record."""
+def phase_k2(torch, taf, k2, report):
+    """K2 against its plain twin on the card; returns the kernels record.
+    `report` is nvcc's for K2's library ("" if it was built already)."""
     rng = np.random.default_rng(SEED + 2)
     main_rows = STREAMS * (4096 // 256)  # the tick's rows: 256 streams × 16
     max_err, timed = 0.0, None
@@ -507,41 +622,68 @@ def phase_k2(torch, taf, k2):
         bases = taf._device_bases(cfg, torch.device(DEVICE))
         frames = voiced_frames(torch, taf, rng, cfg, rows)
         before = k2.mfcc_frames.launches
-        got = k2.mfcc_frames(frames, bases, n_fft)
-        torch.cuda.synchronize()
-        if k2.mfcc_frames.launches != before + 1:
-            raise AssertionError("mfcc_frames did not count its launch")
+        got = check_repeat(torch, f"K2 R={rows} n_fft={n_fft}",
+                           lambda: k2.mfcc_frames(frames, bases, n_fft))
+        if k2.mfcc_frames.launches != before + 2:
+            raise AssertionError("mfcc_frames did not count its launches")
         ref = k2.mfcc_frames_plain(frames, bases, n_fft)
-        errs = []
-        for name, g, r, (rtol, atol) in zip(
-                ("mfcc", "logmel", "power"), got, ref, K1_TOL):
-            if g.shape != r.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"K2 {name}: shape {tuple(g.shape)} or "
-                                     f"non-finite values")
-            errs.append(check_close(f"K2 {name} R={rows} n_fft={n_fft}",
-                                    g, r, rtol, atol))
+        errs = check_mfcc(torch, f"K2 R={rows} n_fft={n_fft}", got, ref)
         max_err = max(max_err, *errs)
         print(f"K2 vs plain R={rows} n_fft={n_fft}: max abs err mfcc "
-              f"{errs[0]:.3e} logmel {errs[1]:.3e} power {errs[2]:.3e}")
+              f"{errs[0]:.3e} logmel {errs[1]:.3e} power {errs[2]:.3e}; "
+              f"bit-equal across 2 runs")
         if (n_fft, rows) == (1024, main_rows):
             timed = (frames, bases, cfg)
+
+    for n_fft in k2.SUPPORTED_N_FFT:
+        ecfg = taf.AudioFrontendConfig(n_fft=n_fft)
+        ebases = taf._device_bases(ecfg, torch.device(DEVICE))
+        for kind in EDGE_KINDS:
+            frames = torch.from_numpy(np.stack(
+                [edge_signal(kind, n_fft, rng) for _ in range(101)])).to(DEVICE)
+            label = f"K2 {kind} n_fft={n_fft}"
+            got = check_repeat(torch, label,
+                               lambda: k2.mfcc_frames(frames, ebases, n_fft))
+            ref = k2.mfcc_frames_plain(frames, ebases, n_fft)
+            max_err = max(max_err, *check_mfcc(torch, label, got, ref, kind))
+        print(f"K2 edge cases n_fft={n_fft} ({', '.join(EDGE_KINDS)}; R=101):"
+              f" within K1_TOL, silence's power 0, bit-equal across 2 runs")
+    odd = taf.AudioFrontendConfig(n_fft=768)
+    before = k2.mfcc_frames.launches
+    try:
+        k2.mfcc_frames(torch.zeros(4, 768, device=DEVICE),
+                       taf._device_bases(odd, torch.device(DEVICE)), 768)
+        raise AssertionError("K2 took n_fft 768")
+    except ValueError:
+        if k2.mfcc_frames.launches != before:
+            raise
+    print("K2 n_fft 768: refused before any launch")
 
     frames, bases, cfg = timed
     run = lambda fn: (lambda: fn(frames, bases, cfg.n_fft))
     kernel_ms = time_ms(run(k2.mfcc_frames))
     plain_ms = time_ms(run(k2.mfcc_frames_plain))
+    kernel_dev = device_ms(torch, run(k2.mfcc_frames), expect=("mfcc_frames",))
     mel_nnz = int(torch.count_nonzero(bases["mel"]))
     flops, nbytes = k2_work(cfg, main_rows, mel_nnz)
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    dense = main_rows * 4 * cfg.n_fft * cfg.n_bins
+    fft = fft_flops(cfg, main_rows)
+    smem, blocks = k2.launch_config(0, cfg.n_fft, cfg.n_mels, cfg.n_mfcc)
+    tiles = -(-main_rows // 8)
     print(f"K2 at R={main_rows} (one tick of {STREAMS} streams), n_fft "
-          f"{cfg.n_fft}: kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.4f} "
+          f"{cfg.n_fft}: kernel {kernel_ms:.4f} ms between CUDA events, "
+          f"{ms_text(kernel_dev)} on the device, plain twin {plain_ms:.4f} "
           f"ms; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.4f} GFLOP "
           f"f32 at FFT cost -> {t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> "
           f"{t_bytes:.4f} ms)")
-    print(f"informational, not the bound: K2's dense DFT alone is "
-          f"{dense / 1e9:.2f} GFLOP -> {dense / F32_FLOPS * 1e3:.4f} ms at the "
-          f"f32 rate")
+    print(f"informational, not the bound: K2's FFT (window, 5 M log2 M for "
+          f"M = {cfg.n_fft // 2}, real split and power) is {fft / 1e9:.4f} "
+          f"GFLOP -> {fft / F32_FLOPS * 1e3:.4f} ms at the f32 rate")
+    print(f"K2 launch: {blocks} blocks of 256 threads resident ({blocks // 132}"
+          f" a SM on 132), grid {min(blocks, tiles)} over {tiles} tiles of 8 "
+          f"rows, {smem} B of dynamic shared memory a block")
+    for line in ptxas_usage(report, "mfcc_frames_kernel") or ["not rebuilt"]:
+        print(f"K2 ptxas: {line}")
     return {
         "name": "mfcc_frames",
         "route": "cuda",
@@ -1719,10 +1861,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    record = phase_kernel(torch, taf, k1)
+    record = phase_kernel(torch, taf, k1, reports["mfcc_signal"])
     record["launches"] = phase_slice(torch, k1)
 
-    k2_record = phase_k2(torch, taf, k2)
+    k2_record = phase_k2(torch, taf, k2, reports["mfcc_frames"])
     model = create_complete_deer_model(seed=SEED)
     detector = ood_detector(np.random.default_rng(SEED + 5))
     k2_record["launches"], rec, chunks, video, text = phase_stream(

@@ -131,6 +131,58 @@ def test_wrapper_rejects_bad_input(bad):
         mfcc_signal(x, bases, 1024, 256)
 
 
+@pytest.mark.parametrize("n_fft", [512, 1024])
+def test_mel_band_table_covers_the_nonzeros(n_fft):
+    """The kernels' band table: filter m's nonzero bins are exactly
+    [lo_m, hi_m)."""
+    bases = taf._device_bases(taf.AudioFrontendConfig(n_fft=n_fft),
+                              torch.device("cpu"))
+    mel, band = bases["mel"], bases["mel_band"]
+    assert band.dtype == torch.int32 and tuple(band.shape) == (2, mel.shape[1])
+    inside = torch.zeros(mel.shape, dtype=torch.bool)
+    for m, (lo, hi) in enumerate(band.t().tolist()):
+        assert lo < hi
+        inside[lo:hi, m] = True
+    assert torch.equal(inside, mel != 0)
+
+
+@pytest.mark.parametrize("n_fft", [512, 1024])
+def test_banded_mel_product_equals_dense(n_fft, rng):
+    """Each filter summed over its band only, in ascending bin order (the
+    kernels' mel product), equals the dense product taken in the same order
+    over every bin bit for bit (a sequential float32 sum: the skipped terms
+    are exact zeros), and power @ mel within float32 rounding."""
+    bases = taf._device_bases(taf.AudioFrontendConfig(n_fft=n_fft),
+                              torch.device("cpu"))
+    mel, band = bases["mel"], bases["mel_band"]
+    power = torch.from_numpy(
+        (100.0 * rng.exponential(size=(64, mel.shape[0]))).astype(np.float32))
+    dense = torch.zeros(64, mel.shape[1])
+    for k in range(mel.shape[0]):
+        dense = dense + power[:, k:k + 1] * mel[k]
+    banded = torch.zeros(64, mel.shape[1])
+    for m, (lo, hi) in enumerate(band.t().tolist()):
+        acc = torch.zeros(64)
+        for k in range(lo, hi):
+            acc = acc + power[:, k] * mel[k, m]
+        banded[:, m] = acc
+    assert torch.equal(banded, dense)
+    torch.testing.assert_close(banded, power @ mel, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["hole", "three_to_a_bin"])
+def test_mel_bands_reject_a_table_the_kernels_cannot_stage(bad):
+    mel = np.zeros((9, 3), dtype=np.float32)
+    if bad == "hole":
+        mel[[2, 4], 0] = 1.0  # bin 3 is zero inside filter 0's band
+        match = "zero inside"
+    else:
+        mel[:, :] = 1.0  # every bin in all three filters
+        match = "overlap"
+    with pytest.raises(ValueError, match=match):
+        taf.mel_bands(mel)
+
+
 def test_short_signal_raises():
     """Reflect padding by n_fft // 2 needs more samples than that; the port
     raises where the reference would reflect repeatedly."""

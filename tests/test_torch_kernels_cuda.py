@@ -7,7 +7,9 @@ without JAX (tests/conftest.py imports JAX unless TPU_DEER_TEST_TPU is set):
     TPU_DEER_TEST_TPU=1 python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Tolerances as between the reference's own front-end paths (float32 sums in
-another order); ZCR counts sign changes and must be equal. K3: rtol 1e-4,
+another order: the kernels' FFT against the plain twins' dense DFT
+products); ZCR counts sign changes and must be equal, and K1 and K2 repeat
+bit for bit. K3: rtol 1e-4,
 atol 2e-5 (float32 FMAs in another order than the plain twin's cuBLAS
 GEMMs, over up to 300 keys). K4: equal int8 values and scale bits (the
 same words, IEEE division). The embedding gradient: rtol 1e-5, atol 1e-3
@@ -63,6 +65,86 @@ def test_kernel_matches_plain(device, b, n):
     assert torch.equal(got[3][..., 1], ref[3][..., 1])
 
 
+def _edge_signal(kind, n, rng):
+    """[n] float32: a tone, silence, a DC offset, a tone at the Nyquist bin
+    (alternating ±0.4) or an impulse; all but silence with voice()-level
+    noise (0.01), since a noiseless tone leaves float noise in empty mel
+    bands, where the log amplifies it."""
+    if kind == "zero":
+        return np.zeros(n, dtype=np.float32)
+    sig = 0.01 * rng.normal(size=n)
+    if kind == "tone":
+        sig += 0.3 * np.sin(2 * np.pi * 170.0 * np.arange(n) / 16000.0)
+    elif kind == "dc":
+        sig += 0.5
+    elif kind == "nyquist":
+        sig += 0.4 * (-1.0) ** np.arange(n)
+    else:
+        sig[n // 3] += 1.0
+    return sig.astype(np.float32)
+
+
+def _check_repeat_and_plain(got, again, ref, kind):
+    for g, a, r, (rtol, atol) in zip(got, again, ref, TOL):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+    if kind == "zero":
+        assert not got[2].any() and not ref[2].any()  # power exactly 0
+
+
+@pytest.mark.parametrize("kind", ["tone", "zero", "dc", "nyquist", "impulse"])
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_k1_fft_cases_match_plain_and_repeat(device, n_fft, kind):
+    rng = np.random.default_rng(n_fft)
+    sig = np.stack([_edge_signal(kind, 24017, rng) for _ in range(3)])
+    cfg = taf.AudioFrontendConfig(n_fft=n_fft)
+    x_pad, _ = taf._pad_for_frames(torch.from_numpy(sig).to(device), cfg)
+    bases = taf._device_bases(cfg, device)
+    before = mfcc_signal.launches
+    got = mfcc_signal(x_pad, bases, n_fft, cfg.hop_length)
+    again = mfcc_signal(x_pad, bases, n_fft, cfg.hop_length)
+    torch.cuda.synchronize()
+    assert mfcc_signal.launches == before + 2
+    ref = mfcc_signal_plain(x_pad, bases, n_fft, cfg.hop_length)
+    _check_repeat_and_plain(got, again, ref, kind)
+    assert torch.equal(got[3][..., 1], ref[3][..., 1])
+
+
+@pytest.mark.parametrize("kind", ["tone", "zero", "dc", "nyquist", "impulse"])
+@pytest.mark.parametrize("n_fft", [512, 1024])
+def test_k2_fft_cases_match_plain_and_repeat(device, n_fft, kind):
+    rng = np.random.default_rng(n_fft)
+    frames = torch.from_numpy(np.stack(
+        [_edge_signal(kind, n_fft, rng) for _ in range(101)])).to(device)
+    bases = taf._device_bases(taf.AudioFrontendConfig(n_fft=n_fft), device)
+    before = k2.mfcc_frames.launches
+    got = k2.mfcc_frames(frames, bases, n_fft)
+    again = k2.mfcc_frames(frames, bases, n_fft)
+    torch.cuda.synchronize()
+    assert k2.mfcc_frames.launches == before + 2
+    ref = k2.mfcc_frames_plain(frames, bases, n_fft)
+    _check_repeat_and_plain(got, again, ref, kind)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_non_power_of_two_n_fft_raises_on_card(device, kernel):
+    """The kernels' FFT takes a power-of-two n_fft; 768 (a multiple of the
+    hop, which the dense K1 took) raises before any launch."""
+    cfg = taf.AudioFrontendConfig(n_fft=768)
+    bases = taf._device_bases(cfg, device)
+    if kernel == "k1":
+        x_pad, _ = taf._pad_for_frames(torch.zeros(1, 8000, device=device), cfg)
+        before = mfcc_signal.launches
+        with pytest.raises(ValueError, match="power-of-two"):
+            mfcc_signal(x_pad, bases, 768, cfg.hop_length)
+        assert mfcc_signal.launches == before
+    else:
+        before = k2.mfcc_frames.launches
+        with pytest.raises(ValueError, match="n_fft"):
+            k2.mfcc_frames(torch.zeros(4, 768, device=device), bases, 768)
+        assert k2.mfcc_frames.launches == before
+
+
 def test_features_default_to_kernel_on_cuda(device):
     sig = torch.randn(2, 20000, device=device)
     before = mfcc_signal.launches
@@ -74,7 +156,7 @@ def test_features_default_to_kernel_on_cuda(device):
 
 @pytest.mark.parametrize("n_fft,rows", [(512, 37), (1024, 4096), (1024, 597)])
 def test_k2_matches_plain(device, n_fft, rows):
-    """Rows not a multiple of the kernel's 32-row block included."""
+    """Rows not a multiple of the kernel's 8-row block included."""
     rng = np.random.default_rng(rows)
     frames = torch.from_numpy(
         rng.normal(size=(rows, n_fft)).astype(np.float32)).to(device)

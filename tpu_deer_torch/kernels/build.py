@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/kernels/lib<name>_<hash>.so` under the repository root (the
-directory is git-ignored). The file name carries a hash of the source, so an
-edited kernel is rebuilt and a built one is reused. Nothing is compiled at
-import time: `load_library` builds at first use.
+directory is git-ignored). The file name carries a hash of the source and
+of every header in `csrc/` (`*.cuh`), so an edited kernel or header is
+rebuilt and a built one is reused. Nothing is compiled at import time:
+`load_library` builds at first use.
 
 Only sm_90a (Hopper) is targeted. There is no fallback: a missing nvcc or a
 failed build raises.
@@ -40,6 +41,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 

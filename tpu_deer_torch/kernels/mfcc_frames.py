@@ -20,7 +20,11 @@ import functools
 import torch
 
 from tpu_deer_torch.kernels.build import load_library
-from tpu_deer_torch.kernels.mfcc_signal import check_bases
+from tpu_deer_torch.kernels.mfcc_signal import (
+    check_bases,
+    current_stream,
+    launch_args,
+)
 
 EPS = 1e-10
 SUPPORTED_N_FFT = (512, 1024)  # the kernel's template instances
@@ -31,14 +35,16 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = load_library("mfcc_frames")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mfcc_frames_launch.argtypes = [i32] + [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.mfcc_frames_launch.argtypes = [i32] + [ptr] * 10 + [i32] * 5 + [ptr]
     lib.mfcc_frames_launch.restype = i32
+    lib.mfcc_frames_config.argtypes = [i32] * 4 + [ptr]
+    lib.mfcc_frames_config.restype = i32
     lib.mfcc_frames_error_string.argtypes = [i32]
     lib.mfcc_frames_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(frames: torch.Tensor, bases: dict, n_fft: int) -> None:
+def _check(frames: torch.Tensor, n_fft: int) -> None:
     if n_fft not in SUPPORTED_N_FFT:
         raise ValueError(f"the fused MFCC-from-frames kernel supports n_fft "
                          f"in {SUPPORTED_N_FFT}, got {n_fft}")
@@ -54,7 +60,6 @@ def _check(frames: torch.Tensor, bases: dict, n_fft: int) -> None:
     if frames.device.type == "cuda" and frames.data_ptr() % 16:
         raise ValueError("frames must start on a 16-byte boundary (the "
                          "kernel loads them as float4)")
-    check_bases(bases, n_fft, frames.device)
 
 
 def mfcc_frames_plain(frames: torch.Tensor, bases: dict, n_fft: int):
@@ -74,23 +79,22 @@ def mfcc_frames(frames: torch.Tensor, bases: dict, n_fft: int):
 
     A CUDA tensor launches kernel K2; a CPU tensor takes the plain twin.
     """
-    _check(frames, bases, n_fft)
+    _check(frames, n_fft)
     if frames.device.type == "cpu":
+        check_bases(bases, n_fft, frames.device)
         return mfcc_frames_plain(frames, bases, n_fft)
+    pointers, n_mels, n_mfcc, blocks = launch_args(bases, n_fft, frames.device,
+                                                   launch_config)
     lib = _library()
-    n_mels, n_mfcc = bases["dct"].shape
+    card = frames.device.index
     rows = frames.shape[0]
-    empty = lambda width: torch.empty(
-        (rows, width), dtype=torch.float32, device=frames.device)
-    mfcc, logmel, power = empty(n_mfcc), empty(n_mels), empty(n_fft // 2 + 1)
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    with torch.cuda.device(frames.device):
-        rc = lib.mfcc_frames_launch(
-            frames.device.index, frames.data_ptr(), bases["cos_w"].data_ptr(),
-            bases["sin_w"].data_ptr(), bases["mel"].data_ptr(),
-            bases["dct"].data_ptr(), mfcc.data_ptr(), logmel.data_ptr(),
-            power.data_ptr(), rows, n_fft, n_mels, n_mfcc, stream,
-        )
+    mfcc, logmel, power = (frames.new_empty((rows, width))
+                           for width in (n_mfcc, n_mels, n_fft // 2 + 1))
+    rc = lib.mfcc_frames_launch(
+        card, frames.data_ptr(), *pointers, mfcc.data_ptr(), logmel.data_ptr(),
+        power.data_ptr(), rows, n_fft, n_mels, n_mfcc, blocks,
+        current_stream(card),
+    )
     if rc != 0:
         raise RuntimeError(
             f"mfcc_frames launch failed: "
@@ -101,3 +105,21 @@ def mfcc_frames(frames: torch.Tensor, bases: dict, n_fft: int):
 
 
 mfcc_frames.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(card: int, n_fft: int, n_mels: int,
+                  n_mfcc: int) -> tuple[int, int]:
+    """(dynamic shared memory of a block in bytes, blocks the card holds at
+    once: the grid of a launch, whose warps walk over rows) for K2 at these
+    sizes on CUDA device `card`. Sets the kernel's shared-memory limit
+    there, so it runs once per card and shape before the first launch;
+    launches nothing."""
+    lib = _library()
+    out = (ctypes.c_int * 2)()
+    rc = lib.mfcc_frames_config(card, n_fft, n_mels, n_mfcc, out)
+    if rc != 0 or out[1] < 1:
+        raise RuntimeError(f"mfcc_frames_config failed: "
+                           f"{lib.mfcc_frames_error_string(rc).decode()} "
+                           f"({rc}, {out[1]} blocks fit)")
+    return out[0], out[1]

@@ -66,25 +66,43 @@ class AudioFrontendConfig:
 
 @functools.lru_cache(maxsize=8)
 def _bases(cfg: AudioFrontendConfig) -> dict[str, np.ndarray]:
-    """Host-built float32 DSP bases for a config (numpy)."""
+    """Host-built DSP bases for a config (numpy float32; the mel band
+    table int32)."""
     window = dsp.hann_window(cfg.n_fft)
     cos, sin = dsp.rdft_matrices(cfg.n_fft)
     f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    mel = f32(dsp.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                 cfg.fmin, cfg.fmax))
     return {
         "window": f32(window),
+        # Row 1 of cos/sin is the kernels' FFT twiddle table.
         "cos": f32(cos),
         "sin": f32(sin),
-        # Window folded into the DFT bases ((x∘w)·C == x·(diag(w)C)): the
-        # kernel never materializes windowed frames.
-        "cos_w": f32(window[:, None] * cos),
-        "sin_w": f32(window[:, None] * sin),
-        "win_sq": f32(window * window),  # [n_fft], for the in-kernel RMS
-        "mel": f32(dsp.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                      cfg.fmin, cfg.fmax)),
+        "mel": mel,
+        "mel_band": mel_bands(mel),
         "dct": f32(dsp.dct_matrix(cfg.n_mels, cfg.n_mfcc)),
         "lags": f32(dsp.idft_lag_matrix(cfg.n_fft, cfg.max_lag)),
         "freqs": f32(np.linspace(0.0, cfg.sample_rate / 2.0, cfg.n_bins)),
     }
+
+
+def mel_bands(mel: np.ndarray) -> np.ndarray:
+    """int32 [2, n_mels]: each filter's first nonzero bin and one past its
+    last (lo = hi = 0 for an empty filter), for the kernels' banded mel
+    product. Raises unless each filter's nonzeros are one run and the runs
+    hold at most 2 * n_bins weights (a bin lies in at most two triangles),
+    which is what the kernels stage."""
+    nz = mel != 0
+    band = np.zeros((2, mel.shape[1]), dtype=np.int32)
+    for m in range(mel.shape[1]):
+        idx = np.flatnonzero(nz[:, m])
+        if idx.size:
+            band[:, m] = idx[0], idx[-1] + 1
+        if idx.size != band[1, m] - band[0, m]:
+            raise ValueError(f"mel filter {m} has a zero inside its band")
+    if (band[1] - band[0]).sum() > 2 * mel.shape[0]:
+        raise ValueError("mel filters overlap more than two to a bin")
+    return band
 
 
 @functools.lru_cache(maxsize=8)
