@@ -65,11 +65,17 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               own 16 tokens (no K3); then 3 steps, each run with the
               kernels and with their plain twins from the same seeded
               state, and the first kernel step twice, equal bit for bit;
-  9. K4     — the stochastic int8 quantizer against its plain twins at
-              [1, 1], [7, 13], [768, 512] and [4096, 4096], with the given
-              words and with Philox words: equal values and scale bits, a
-              seed repeats and another differs, the reference's bounds; its
-              time at [4096, 4096] beside the plain twins' and its bound;
+  9. K4     — the stochastic int8 quantizer (one cooperative launch): the
+              card's on-chip capacity (resident blocks, bytes staged per
+              block); against its plain twins at [1, 1], [7, 13], [768, 512],
+              3 elements past that capacity (each share then reads its rest
+              from L2) and [4096, 4096], with the given words and with
+              Philox words: equal values and scale bits, a seed repeats bit
+              for bit and another differs, the reference's bounds; its time
+              at [4096, 4096] between CUDA events and on the device (one
+              kernel a call and no memset, or it raises) beside the plain
+              twins', both modes' byte bounds and w.to(torch.int8) as a byte
+              yardstick;
  10. main   — the feature-level main path: `tpu_deer_torch.cli.main --mode
               full --quick` at the flagship's width (3,918,324 params) with
               every artifact checked; the best checkpoint served by
@@ -80,8 +86,10 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               by direct calls of its public function on each of the
               checkpoint's 44 Dense kernels, each held against the plain
               twin (the launches the record reports: no entry point of
-              either package launches K4); and the headline recipe's step
-              (batch 4096, 131,072 rows, 64 steps) with a profiled step.
+              either package launches K4), then the 44 calls timed (host
+              clock to a synchronize, device time); and the headline
+              recipe's step (batch 4096, 131,072 rows, 64 steps) with a
+              profiled step.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -150,7 +158,11 @@ K1_TOL = ((2e-3, 5e-3), (2e-4, 1e-3), (2e-4, 1e-3), (1e-4, 1e-5))
 # Features and predictions, kernel vs plain twin (rtol, atol).
 FEAT_TOL = (1e-4, 1e-5)
 K4_SHAPES = ((1, 1), (7, 13), (768, 512), (4096, 4096))  # [768, 512]: the
-# flagship's largest Dense kernel (fusion_gate); [4096, 4096] is timed.
+# flagship's largest Dense kernel (fusion_gate); [4096, 4096] is timed, and
+# phase 9 adds [capacity + 3] before it (k4_shapes): the card's staged
+# capacity is its own, so that entry is computed there.
+K4_ABOVE_CAPACITY = 3  # elements past the capacity: each share reads 16 from L2
+K4_NAME = "quantize_one_pass"  # the kernel's name in the profiler
 # K4's bounds, as tests/test_quantization.py:64-67 holds the reference:
 # values in [-127, 127] and |q·s - w| <= 1.01 s everywhere; |mean(q·s - w)|
 # <= 0.05 s where the mean has >= 4,096 terms (its standard deviation is at
@@ -1561,12 +1573,60 @@ def k4_err(torch, got, ref, label):
                float((s - rs).abs().max()))
 
 
+def k4_shapes(capacity):
+    """K4_SHAPES with [capacity + K4_ABOVE_CAPACITY] before the timed last."""
+    return K4_SHAPES[:-1] + ((capacity + K4_ABOVE_CAPACITY,),) + K4_SHAPES[-1:]
+
+
+def k4_device_ms(torch, fn, calls=20, windows=3):
+    """K4's device time a call (ms) under the profiler, or None (not
+    measured); raises unless the window holds exactly one K4 kernel a call
+    and no other device event (no memset)."""
+    fn()
+    got = profiled(torch, lambda: [fn() for _ in range(calls)], {K4_NAME: calls},
+                   windows)
+    if got is None:
+        return None
+    names = [name for name, _ in got[0]]
+    others = sorted({name for name in names if K4_NAME not in name})
+    if others or len(names) != calls:
+        raise AssertionError(f"K4: {len(names)} device events for {calls} "
+                             f"calls, others {others}")
+    return sum(ms for _, ms in got[0]) / calls
+
+
+def k4_calls_ms(torch, quantize, weights, reps=20):
+    """Calls quantize(w, seed=i) on each of `weights` in turn: (median host
+    ms of the whole round to a synchronize over `reps` rounds, its device
+    ms under the profiler or None, the device events in that window)."""
+    def one_round():
+        for i, w in enumerate(weights):
+            quantize(w, seed=i)
+
+    one_round()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    got = profiled(torch, one_round, {}, 3)
+    dev = None if got is None else sum(ms for _, ms in got[0])
+    return float(np.median(host)), dev, None if got is None else len(got[0])
+
+
 def phase_k4(torch, k4):
     """K4 against its plain twins on the card (DEVICE); returns its record."""
     g = torch.Generator().manual_seed(SEED + 9)
     seed = 2**40 + 12345  # both key words in use
     max_err = 0.0
-    for shape in K4_SHAPES:
+    resident, stage_bytes = k4.launch_config(torch.cuda.current_device())
+    capacity = k4.staged_capacity(DEVICE)
+    print(f"K4 on chip: {resident} blocks of {k4.THREADS} threads resident (a "
+          f"cooperative grid), {stage_bytes} B of w staged per block in shared "
+          f"memory: {capacity} elements ({4 * capacity / 1e6:.1f} MB) staged whole")
+    for shape in k4_shapes(capacity):
         w = torch.randn(shape, generator=g).to(DEVICE)
         bits = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
                              generator=g).to(DEVICE)
@@ -1585,40 +1645,50 @@ def phase_k4(torch, k4):
             max_err = max(max_err, k4_err(torch, (q, s), refs[mode],
                                           f"{mode} {shape}"))
         q, s = got["philox"]
-        if not torch.equal(k4.quantize_int8_stochastic(w, seed)[0], q):
+        again = k4.quantize_int8_stochastic(w, seed)
+        if not (torch.equal(again[0], q) and torch.equal(again[1], s)):
             raise AssertionError(f"K4 {shape}: one seed did not repeat")
         differs = not torch.equal(k4.quantize_int8_stochastic(w, seed + 1)[0], q)
         if w.numel() >= 64 and not differs:
             raise AssertionError(f"K4 {shape}: another seed gave the same values")
         worst, mean = k4_bounds(torch, q, s, w, f"{shape}")
-        print(f"K4 vs plain {shape}: given words and Philox words equal "
-              f"(values and scale bits); seed repeats, another seed "
-              f"{'differs' if differs else 'gives the same values'}; max "
-              f"|q·s - w| {worst:.4f} s, mean {mean:+.2e} s")
+        path = "staged whole" if w.numel() <= capacity else "rest from L2"
+        print(f"K4 vs plain {shape} ({path}): given words and Philox words "
+              f"equal (values and scale bits); seed repeats (bit for bit), "
+              f"another seed {'differs' if differs else 'gives the same values'}; "
+              f"max |q·s - w| {worst:.4f} s, mean {mean:+.2e} s")
     n = w.numel()  # the last shape, [4096, 4096]
     kernel_ms = time_ms(lambda: k4.quantize_int8_stochastic(w, seed))
     bits_ms = time_ms(lambda: k4.quantize_int8_stochastic_bits(w, bits))
-    k4_names = ("amax_kernel", "quantize_kernel")
-    dev_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic(w, seed),
-                       expect=k4_names)
-    dev_bits_ms = device_ms(torch, lambda: k4.quantize_int8_stochastic_bits(w, bits),
-                            expect=k4_names)
+    dev_ms = k4_device_ms(torch, lambda: k4.quantize_int8_stochastic(w, seed))
+    dev_bits_ms = k4_device_ms(torch, lambda: k4.quantize_int8_stochastic_bits(w, bits))
     plain_ms = time_ms(lambda: k4.quantize_int8_stochastic_plain(w, seed))
     plain_bits_ms = time_ms(lambda: k4.quantize_int8_stochastic_bits_plain(w, bits))
+    # A byte yardstick, not library_ms: w.to(torch.int8) moves the same 4 B
+    # in and 1 B out an element but computes another function.
+    cast_ms = time_ms(lambda: w.to(torch.int8))
+    cast_dev_ms = device_ms(torch, lambda: w.to(torch.int8))
     # Bytes: w read once, q written once (the bits variant reads 4 B more).
     # Operations (abs, max, divide, add, floor, two clamps: 7 an element)
     # take 7n / F32_FLOPS, far below; Philox's integer work is not counted.
     t_bytes = 5 * n / HBM_BYTES_PER_S * 1e3
+    t_bits = 9 * n / HBM_BYTES_PER_S * 1e3
     t_ops = 7 * n / F32_FLOPS * 1e3
+    share = (lambda ms, bound: "not measured" if ms is None
+             else f"{100 * bound / ms:.1f}% of its bound")
     print(f"K4 at {tuple(w.shape)}: kernel (Philox) {kernel_ms:.4f} ms, with "
           f"given words {bits_ms:.4f} ms (a call between CUDA events, as K1-K3); "
-          f"device time {ms_text(dev_ms)}, with given words {ms_text(dev_bits_ms)} "
-          f"(K4a + K4b and the memset, profiler); plain twin {plain_ms:.4f} ms "
-          f"(Philox words in torch on the card), {plain_bits_ms:.4f} ms with "
-          f"given words; bound {max(t_bytes, t_ops):.4f} ms ({5 * n / 1e6:.1f} MB "
-          f"-> {t_bytes:.4f} ms; {9 * n / 1e6:.1f} MB with given words -> "
-          f"{9 * n / HBM_BYTES_PER_S * 1e3:.4f} ms); no PyTorch call computes "
-          f"it (torch.quantize_per_tensor rounds to nearest)")
+          f"device time {ms_text(dev_ms)} ({share(dev_ms, t_bytes)}), with given "
+          f"words {ms_text(dev_bits_ms)} ({share(dev_bits_ms, t_bits)}) (one "
+          f"{K4_NAME} launch a call and no other device event, profiler); plain "
+          f"twin {plain_ms:.4f} ms (Philox words in torch on the card), "
+          f"{plain_bits_ms:.4f} ms with given words; bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({5 * n / 1e6:.1f} MB -> {t_bytes:.4f} "
+          f"ms; {9 * n / 1e6:.1f} MB with given words -> {t_bits:.4f} ms); no "
+          f"PyTorch call computes it (torch.quantize_per_tensor rounds to "
+          f"nearest); byte yardstick w.to(torch.int8) (4 B in, 1 B out) "
+          f"{cast_ms:.4f} ms between CUDA events, {ms_text(cast_dev_ms)} on the "
+          f"device")
     return {
         "name": "quantize_int8",
         "route": "cuda",
@@ -1797,6 +1867,11 @@ def phase_main(torch, k4):
               f"{launches} launches, each equal to the plain twin (values "
               f"and scale bits) and within the bounds (max |q·s - w| "
               f"{worst:.4f} s)")
+        host_ms, dev_ms, events = k4_calls_ms(torch, quant.quantize_int8_stochastic,
+                                              weights)
+        print(f"main: the {len(dense)} direct K4 calls: {host_ms:.4f} ms host "
+              f"clock to a synchronize (median of 20 rounds), {ms_text(dev_ms)} "
+              f"on the device over {events} device events (profiler)")
         del weights, results, engines
 
         # (d) the headline recipe's step at batch 4096.

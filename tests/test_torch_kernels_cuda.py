@@ -351,14 +351,63 @@ def test_k3_wrapper_raises(device, bad):
     assert k3.flash_attention_fwd.launches == before
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (7, 13), (768, 512), (1001,)])
+def _k4_case(device, case, g):
+    """(w, bits) on the card for a K4 case: a shape, or a named edge."""
+    if isinstance(case, tuple):
+        w = torch.randn(case, generator=g)
+    elif case in ("below_capacity", "above_capacity"):
+        # Just under and over the largest w staged whole: above it, each
+        # share rounds its last group from L2 (the chunked path).
+        cap = k4.staged_capacity(device)
+        w = torch.randn(cap - 1 if case == "below_capacity" else cap + 3,
+                        generator=g)
+    elif case == "not_multiple_of_4":
+        w = torch.randn(2**20 + 3, generator=g)  # 64 shares, a ragged end
+    elif case == "misaligned":
+        w = torch.randn(2**20 + 6, generator=g)[1:]  # 4 bytes past 16
+    elif case == "zeros":
+        w = torch.zeros(1000, 1000)
+    elif case == "subnormals":
+        w = torch.randn(300, 301, generator=g)
+        w.view(-1)[1::2] *= 1e-39  # beside normals: quotients below FLT_MIN
+    else:  # "huge_among_small": quotients around FLT_MIN
+        w = torch.randn(512, 513, generator=g) * 1e-10
+        w[100, 7] = 1e30
+    w = w.to(device)
+    bits = torch.randint(-2**31, 2**31 - 1, w.shape, dtype=torch.int32,
+                         generator=g).to(device)
+    if case == "misaligned":
+        bits = torch.randint(-2**31, 2**31 - 1, (w.numel() + 1,),
+                             dtype=torch.int32, generator=g).to(device)[1:]
+    return w, bits
+
+
+def test_k4_refused_cooperative_launch_raises(device, monkeypatch):
+    """A grid larger than the card holds at once is refused by the
+    cooperative launch; the wrapper raises and counts no launch."""
+    resident, stage_bytes = k4.launch_config(device.index)
+    monkeypatch.setattr(k4, "launch_config",
+                        lambda card: (2 * resident, stage_bytes))
+    w = torch.ones(2 * resident * k4.MIN_SHARE, device=device)
+    before = k4.quantize_int8_stochastic.launches
+    with pytest.raises(RuntimeError, match="quantize_int8 launch failed"):
+        k4.quantize_int8_stochastic(w)
+    assert k4.quantize_int8_stochastic.launches == before
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1), (7, 13), (768, 512), (1001,), "below_capacity", "above_capacity",
+    "not_multiple_of_4", "misaligned", "zeros", "subnormals",
+    "huge_among_small"])
 def test_k4_matches_plain(device, shape):
     """Both modes: the given words (bits) and Philox keyed by a 64-bit seed,
-    against the plain twins; a misaligned view takes the scalar path."""
-    g = torch.Generator().manual_seed(len(shape))
-    w = torch.randn(shape, generator=g).to(device)
-    bits = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
-                         generator=g).to(device)
+    against the plain twins, values and scale bits, and each again bit for
+    bit; a misaligned view takes the scalar path; w just below and above
+    the card's staged capacity (read from the wrapper); zeros, subnormals
+    and one 1e30 among small values."""
+    g = torch.Generator().manual_seed(
+        len(shape) if isinstance(shape, tuple) else sum(map(ord, shape)))
+    w, bits = _k4_case(device, shape, g)
     before = (k4.quantize_int8_stochastic.launches,
               k4.quantize_int8_stochastic_bits.launches)
     got = [k4.quantize_int8_stochastic_bits(w, bits),
@@ -369,10 +418,15 @@ def test_k4_matches_plain(device, shape):
                                                            before[1] + 1)
     refs = [k4.quantize_int8_stochastic_bits_plain(w, bits),
             k4.quantize_int8_stochastic_plain(w, seed=2**40 + 3)]
-    for (q, s), (rq, rs) in zip(got, refs):
+    again = [k4.quantize_int8_stochastic_bits(w, bits),
+             k4.quantize_int8_stochastic(w, seed=2**40 + 3)]
+    for (q, s), (rq, rs), (aq, as_) in zip(got, refs, again):
+        assert q.shape == w.shape and s.shape == (1, 1)
         assert torch.equal(q, rq)
         assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
-    if len(shape) == 1:
+        assert torch.equal(aq, q)
+        assert torch.equal(as_.view(torch.int32), s.view(torch.int32))
+    if isinstance(shape, tuple) and len(shape) == 1:
         view = w[1:]  # 4 bytes past a 16-byte boundary
         q, s = k4.quantize_int8_stochastic(view, seed=5)
         rq, rs = k4.quantize_int8_stochastic_plain(view, seed=5)

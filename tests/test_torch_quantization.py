@@ -118,6 +118,41 @@ def test_k4_wrappers_raise(bad):
         call()
 
 
+_SPLIT_SIZES = sorted({1, 2, 3, 4, 5, 15, 16, 17, 1001, 16383, 16384, 16385,
+                       393216, 3899984, 2**20 + 3, 4096 * 4096, 2**26 + 3}
+                      | {k * 58080 + d for k in (1, 2, 132, 264)
+                         for d in (-17, -1, 0, 1, 3, 16)})
+
+
+@pytest.mark.parametrize("sms", [1, 2, 7, 78, 114, 132, 144, 264])
+@pytest.mark.parametrize("stage_bytes", [4 * k4.MIN_SHARE, 100_000, 232_320,
+                                         232_448])
+def test_k4_split_covers_w(sms, stage_bytes):
+    """K4's cut of w into shares, for SM counts (one resident block a SM)
+    and stage sizes up to the 227 KB a block may have: each element in
+    exactly one share, share starts 16-byte aligned, at most the resident
+    blocks, staged bytes within the stage, and every element staged exactly
+    when n <= capacity."""
+    cap = k4.capacity(sms, stage_bytes)
+    for n in _SPLIT_SIZES:
+        grid, share, staged = k4.split(n, sms, stage_bytes)
+        assert 1 <= grid <= sms and share % k4.GROUP == 0
+        bounds = [min(n, b * share) for b in range(grid + 1)]
+        assert bounds[0] == 0 and bounds[-1] == n
+        assert all(hi > lo for lo, hi in zip(bounds, bounds[1:]))  # none empty
+        assert all(4 * lo % 16 == 0 for lo in bounds[:-1])
+        assert staged % k4.GROUP == 0 and 0 < staged <= share
+        assert 4 * staged <= stage_bytes <= 232_448
+        assert (staged == share) == (n <= cap)
+
+
+def test_k4_split_refuses():
+    for args in [(0, 132, 232_320), (5, 0, 232_320),
+                 (5, 132, 4 * k4.MIN_SHARE - 64)]:
+        with pytest.raises(ValueError):
+            k4.split(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def _flagship():
     """The reference's flagship module and the port's seeded weights as

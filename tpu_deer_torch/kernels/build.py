@@ -8,7 +8,8 @@ rebuilt and a built one is reused. Nothing is compiled at import time:
 `load_library` builds at first use.
 
 Only sm_90a (Hopper) is targeted. There is no fallback: a missing nvcc or a
-failed build raises.
+failed build raises. `current_stream` gives the wrappers the stream to
+launch on.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -75,3 +78,11 @@ def load_library(name: str) -> ctypes.CDLL:
         build(name)
         _loaded[name] = ctypes.CDLL(str(_target(name)))
     return _loaded[name]
+
+
+def current_stream(card: int) -> int:
+    """PyTorch's current stream on CUDA device `card`, as a cudaStream_t.
+    The raw call skips the Python layer of
+    torch.cuda.current_stream(device).cuda_stream, a few microseconds a
+    call, which counts against a kernel of tens of microseconds."""
+    return torch._C._cuda_getCurrentRawStream(card)

@@ -19,12 +19,8 @@ import functools
 
 import torch
 
-from tpu_deer_torch.kernels.build import load_library
-from tpu_deer_torch.kernels.mfcc_signal import (
-    check_bases,
-    current_stream,
-    launch_args,
-)
+from tpu_deer_torch.kernels.build import current_stream, load_library
+from tpu_deer_torch.kernels.mfcc_signal import check_bases, launch_args
 
 EPS = 1e-10
 SUPPORTED_N_FFT = (512, 1024)  # the kernel's template instances

@@ -19,18 +19,10 @@ import functools
 
 import torch
 
-from tpu_deer_torch.kernels.build import load_library
+from tpu_deer_torch.kernels.build import current_stream, load_library
 
 EPS = 1e-10
 SUPPORTED_N_FFT = (512, 1024, 2048)  # the kernel's template instances
-
-
-def current_stream(card: int) -> int:
-    """PyTorch's current stream on CUDA device `card`, as a cudaStream_t.
-    The raw call skips the Python layer of
-    torch.cuda.current_stream(device).cuda_stream, a few microseconds a
-    call, which counts against a kernel of tens of microseconds."""
-    return torch._C._cuda_getCurrentRawStream(card)
 
 
 @functools.lru_cache(maxsize=None)

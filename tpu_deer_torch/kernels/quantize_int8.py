@@ -25,6 +25,11 @@ get the words:
 Each wrapper launches the kernel for a CUDA tensor (or raises) and runs its
 plain twin for a CPU tensor; each counts its kernel calls in `.launches`.
 Contiguous float32 only.
+
+The kernel is one cooperative launch whose blocks each take a contiguous
+share of w; `split` (pure, tested on the CPU) cuts w into those shares for
+the card's resident blocks and shared memory (`launch_config`), and
+`staged_capacity` is the largest w whose shares stay in shared memory whole.
 """
 
 from __future__ import annotations
@@ -35,12 +40,18 @@ import functools
 import numpy as np
 import torch
 
-from tpu_deer_torch.kernels.build import load_library
+from tpu_deer_torch.kernels.build import current_stream, load_library
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _INV127 = float(np.float32(1.0) / np.float32(127.0))  # exact in float32
+# csrc/quantize_int8.cu: threads a block, and elements a 16-byte store of q
+# holds (shares and stages are whole groups of them).
+THREADS, GROUP = 1024, 16
+# A block takes at least 4,096 elements (a group for a quarter of its
+# threads): smaller w takes fewer blocks.
+MIN_SHARE = 4096
 
 
 def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -92,17 +103,65 @@ def quantize_int8_stochastic_plain(w: torch.Tensor, seed: int = 0):
     return quantize_int8_stochastic_bits_plain(w, bits.reshape(w.shape))
 
 
+def split(n: int, resident: int, stage_bytes: int) -> tuple[int, int, int]:
+    """How K4 cuts w [n] into shares: (grid, share, staged). Block b of the
+    grid rounds elements [b·share, min(n, (b + 1)·share)) and stages the
+    first `staged` of them in shared memory; share and staged are multiples
+    of GROUP (every share starts on a 64-byte boundary), grid <= resident
+    (the blocks the card holds at once) and staged · 4 <= stage_bytes (the
+    shared memory a block may stage, at least a MIN_SHARE's)."""
+    if n < 1 or resident < 1 or stage_bytes < 4 * MIN_SHARE:
+        raise ValueError(f"no split of {n} elements over {resident} blocks "
+                         f"of {stage_bytes} B")
+    cap = stage_bytes // (4 * GROUP) * GROUP
+    grid = min(resident, -(-n // MIN_SHARE))
+    per_block = -(-n // grid)
+    share = -(-per_block // GROUP) * GROUP
+    grid = -(-n // share)  # every block has an element
+    return grid, share, min(share, cap)
+
+
+def capacity(resident: int, stage_bytes: int) -> int:
+    """The largest n whose split stages every element in shared memory."""
+    return resident * (stage_bytes // (4 * GROUP) * GROUP)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = load_library("quantize_int8")
-    ptr = ctypes.c_void_p
-    lib.quantize_int8_launch.argtypes = [ctypes.c_int] + [ptr] * 5 + [
-        ctypes.c_longlong, ctypes.c_ulonglong, ptr]
-    lib.quantize_int8_launch.restype = ctypes.c_int
-    lib.quantize_int8_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.quantize_int8_launch.argtypes = [i32] + [ptr] * 5 + [
+        i64, i64, i32, i32, ctypes.c_ulonglong, ptr]
+    lib.quantize_int8_launch.restype = i32
+    lib.quantize_int8_config.argtypes = [i32, ptr]
+    lib.quantize_int8_config.restype = i32
+    lib.quantize_int8_error_string.argtypes = [i32]
     lib.quantize_int8_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(card: int) -> tuple[int, int]:
+    """(blocks CUDA device `card` holds at once, shared-memory bytes a block
+    may stage) for K4. Sets the kernel's shared-memory limit there, so it
+    runs once per card before the first launch; launches nothing."""
+    lib = _library()
+    out = (ctypes.c_int * 2)()
+    rc = lib.quantize_int8_config(card, out)
+    if rc != 0 or out[0] < 1:
+        raise RuntimeError(f"quantize_int8_config failed: "
+                           f"{lib.quantize_int8_error_string(rc).decode()} "
+                           f"({rc}, {out[0]} blocks fit)")
+    return out[0], out[1]
+
+
+def staged_capacity(device) -> int:
+    """The largest w (elements) that K4 stages in shared memory whole on
+    CUDA device `device`; a larger one reads the rest of each share from L2."""
+    device = torch.device(device)
+    card = torch.cuda.current_device() if device.index is None else device.index
+    return capacity(*launch_config(card))
 
 
 def _check_seed(seed: int) -> int:
@@ -131,19 +190,23 @@ def _check(w: torch.Tensor, bits: torch.Tensor | None = None) -> None:
 
 def _launch(w: torch.Tensor, bits: torch.Tensor | None, seed: int):
     lib = _library()
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    card = w.device.index
+    n = w.numel()
+    grid, share, staged = split(n, *launch_config(card))
+    # Each block's max |w| (as bits) goes to a slot in q's buffer, past q
+    # (16-byte aligned): at most 4 B per MIN_SHARE elements, and the scale
+    # holds nothing but itself.
+    slots = -(-n // GROUP) * GROUP
+    buf = torch.empty(slots + 4 * grid, dtype=torch.int8, device=w.device)
     scale = torch.empty((1, 1), dtype=torch.float32, device=w.device)
-    amax = torch.empty(1, dtype=torch.int32, device=w.device)
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    with torch.cuda.device(w.device):
-        rc = lib.quantize_int8_launch(
-            w.device.index, w.data_ptr(),
-            None if bits is None else bits.data_ptr(), q.data_ptr(),
-            scale.data_ptr(), amax.data_ptr(), w.numel(), seed, stream)
+    rc = lib.quantize_int8_launch(
+        card, w.data_ptr(), None if bits is None else bits.data_ptr(),
+        buf.data_ptr(), scale.data_ptr(), buf.data_ptr() + slots, n, share,
+        staged, grid, seed, current_stream(card))
     if rc != 0:
         raise RuntimeError(f"quantize_int8 launch failed: "
                            f"{lib.quantize_int8_error_string(rc).decode()} ({rc})")
-    return q, scale
+    return buf[:n].view(w.shape), scale
 
 
 def quantize_int8_stochastic(w: torch.Tensor, seed: int = 0):
