@@ -87,9 +87,20 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               checkpoint's 44 Dense kernels, each held against the plain
               twin (the launches the record reports: no entry point of
               either package launches K4), then the 44 calls timed (host
-              clock to a synchronize, device time); and the headline
-              recipe's step (batch 4096, 131,072 rows, 64 steps) with a
-              profiled step.
+              clock to a synchronize, device time); (d) the headline recipe
+              (`--recipe uncertainty`: batch 4096, fused epochs) on 131,072
+              rows for 2 epochs (64 steps) as the pipeline builds it: a CUDA
+              graph of the train step replayed for every step after the
+              warm-up (raises unless the replays are the steps less the
+              warm-up), then the same without fused epochs (eager steps):
+              step p50 and epoch wall both ways, the capture's time; 8
+              graphed and 8 eager steps from one state and seed with
+              dropout on, parameters within rtol 1e-5 / atol 1e-5 (and the
+              count of tensors differing in any bit); the device's busy
+              share over an epoch of replays and over an eager step; (e)
+              the headline experiment's twin (`tpu_deer_torch.experiments
+              .synthetic_headline`) at 131,072 rows for 10 epochs, its JSON
+              and Markdown written and its metrics finite.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -169,10 +180,17 @@ K4_NAME = "quantize_one_pass"  # the kernel's name in the profiler
 # most 0.5 s / sqrt(n), 0.0078 s there; the reference tests 8,192).
 K4_MEAN_MIN = 4096
 QUICK_ROWS = (512, 128, 128)  # cli.py --quick's synthetic splits, seed 42
-# The headline recipe's step (cli.py --recipe uncertainty: batch 4096) on
-# 131,072 synthetic training rows for 2 epochs (64 steps); fused epochs
-# (one lax.scan an epoch in the reference) are not ported.
+# The headline recipe (cli.py --recipe uncertainty: batch 4096, fused
+# epochs) on 131,072 synthetic training rows for 2 epochs (64 steps).
 STEP_ROWS, STEP_EPOCHS = 131072, 2
+# Graphed steps against eager ones from one state (rtol, atol): the same
+# float32 device work in the same order, so equal bits are expected; the
+# limit allows for a cuBLAS algorithm that differs between a capture and an
+# eager launch.
+COMPARE_STEPS, GRAPH_TOL = 8, (1e-5, 1e-5)
+# The headline experiment's twin, cut from 1,048,576 rows and 100 epochs
+# (validation every 10 epochs: one validation).
+TWIN_ROWS, TWIN_EPOCHS = 131072, 10
 PREDICT_SIZES = (1, 8, 64, 256)
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
@@ -1704,20 +1722,20 @@ def phase_k4(torch, k4):
     }
 
 
-def timed_steps(trainer_cls, steps, torch):
-    """Patch trainer_cls._train_step to append each step's host seconds
-    (to a synchronize) to steps; returns the original."""
-    step_fn = trainer_cls._train_step
+def timed_method(cls, name, times, torch):
+    """Patch cls.<name> to append each call's host seconds (to a
+    synchronize) to times; returns the original."""
+    fn = getattr(cls, name)
 
-    def timed_step(self, *args, **kw):
+    def timed(self, *args, **kw):
         t_start = time.perf_counter()
-        aux = step_fn(self, *args, **kw)
+        out = fn(self, *args, **kw)
         torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t_start)
-        return aux
+        times.append(time.perf_counter() - t_start)
+        return out
 
-    trainer_cls._train_step = timed_step
-    return step_fn
+    setattr(cls, name, timed)
+    return fn
 
 
 def predict_p50(engine, feats, n, reps=30):
@@ -1731,12 +1749,11 @@ def predict_p50(engine, feats, n, reps=30):
 
 def phase_main(torch, k4):
     """The feature-level main path: CLI quick run, int8 serving of its
-    checkpoint, K4 on its kernels, the headline step. Returns K4's launches
-    in (c) and its largest difference from the plain twin there."""
+    checkpoint, K4 on its kernels. Returns K4's launches in (c) and its
+    largest difference from the plain twin there."""
     import tempfile
 
     from tpu_deer_torch import cli
-    from tpu_deer_torch.data.pipeline import ArrayDataset
     from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
     from tpu_deer_torch.models.deer_model import CompleteDEERModel
     from tpu_deer_torch.ops import quantization as quant
@@ -1750,7 +1767,7 @@ def phase_main(torch, k4):
         k4.quantize_int8_stochastic.launches = 0
         k4.quantize_int8_stochastic_bits.launches = 0
         steps = []
-        step_fn = timed_steps(DEERTrainer, steps, torch)
+        step_fn = timed_method(DEERTrainer, "_train_step", steps, torch)
         t0 = time.perf_counter()
         try:
             rc = cli.main(["--mode", "full", "--quick", "--output_dir", out,
@@ -1873,37 +1890,147 @@ def phase_main(torch, k4):
               f"clock to a synchronize (median of 20 rounds), {ms_text(dev_ms)} "
               f"on the device over {events} device events (profiler)")
         del weights, results, engines
-
-        # (d) the headline recipe's step at batch 4096.
-        pipe = cli.MultimodalDEERPipeline(
-            output_dir=out, experiment_name="step", recipe="uncertainty",
-            overrides={"training.fused_epochs": False,
-                       "training.num_epochs": STEP_EPOCHS}, device=DEVICE)
-        pipe.create_model()
-        splits = make_synthetic_splits(SyntheticConfig(
-            n_train=STEP_ROWS, n_val=4096, n_test=8, seed=42))
-        pipe.datasets = {s: {"synthetic": ArrayDataset(splits[s], "synthetic")}
-                         for s in ("train", "val")}
-        trainer = pipe.create_trainer()
-        steps = []
-        step_fn = timed_steps(DEERTrainer, steps, torch)
-        try:
-            trainer.train(pipe.datasets["train"], pipe.datasets["val"])
-        finally:
-            DEERTrainer._train_step = step_fn
-        staged = sum(v.numel() * v.element_size() for v in
-                     trainer._stage(pipe.datasets["train"]["synthetic"]).values())
-        bs = trainer.config.batch_size
-        print(f"main: recipe uncertainty step (batch {bs}, {STEP_ROWS} rows "
-              f"staged, {staged / 1e9:.2f} GB): {len(steps)} steps, p50 "
-              f"{np.median(steps[1:]) * 1e3:.4f} ms (first "
-              f"{steps[0] * 1e3:.1f} ms; host clock to a synchronize), "
-              f"{bs / np.median(steps[1:]):.0f} rows/s")
-        batch = trainer._batch_from_indices(pipe.datasets["train"]["synthetic"],
-                                            np.arange(bs))
-        profile_window(torch, f"train step at batch {bs}",
-                       lambda: trainer._train_step(batch, 1.0, 1.0))
     return launches, k4_max_err
+
+
+def phase_recipe(torch):
+    """The headline recipe: fused epochs as CUDA graphs of the train step,
+    against eager steps; then the headline experiment's twin."""
+    import tempfile
+
+    from tpu_deer_torch import cli
+    from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
+    from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+    from tpu_deer_torch.experiments import synthetic_headline
+    from tpu_deer_torch.train.trainer import DEERTrainer
+
+    splits = make_synthetic_splits(SyntheticConfig(
+        n_train=STEP_ROWS, n_val=4096, n_test=8, seed=42))
+    data = {s: {"synthetic": ArrayDataset(splits[s], "synthetic")}
+            for s in ("train", "val")}
+    with tempfile.TemporaryDirectory(prefix="recipe_") as out:
+        # (d) the recipe as the pipeline builds it (fused, graphed), then
+        # without fused epochs (eager steps); validation after each epoch
+        # (eager, between the replays).
+        runs = {}
+        for label, overrides, step_name in (
+                ("graphed", {}, "_fused_step"),
+                ("eager", {"training.fused_epochs": False}, "_train_step")):
+            pipe = cli.MultimodalDEERPipeline(
+                output_dir=out, experiment_name=label, recipe="uncertainty",
+                overrides={"training.num_epochs": STEP_EPOCHS,
+                           "training.val_frequency": 1, **overrides},
+                device=DEVICE)
+            pipe.create_model()
+            pipe.datasets = data
+            trainer = pipe.create_trainer()
+            steps, epochs = [], []
+            saved = (timed_method(DEERTrainer, step_name, steps, torch),
+                     timed_method(DEERTrainer, "train_epoch", epochs, torch))
+            try:
+                res = trainer.train(data["train"], data["val"])
+            finally:
+                setattr(DEERTrainer, step_name, saved[0])
+                DEERTrainer.train_epoch = saved[1]
+            if not math.isfinite(res["best_val_ccc"]):
+                raise AssertionError(f"recipe {label}: val CCC "
+                                     f"{res['best_val_ccc']}")
+            runs[label] = (trainer, steps, epochs, res)
+        graphed, eager = runs["graphed"][0], runs["eager"][0]
+        bs = graphed.config.batch_size
+        n_steps = STEP_EPOCHS * STEP_ROWS // bs
+        warm = graphed.GRAPH_WARMUP
+        if not graphed.config.fused_epochs or graphed.step != n_steps \
+                or graphed._run is None or graphed._run.eager != warm \
+                or graphed.graph_replays != n_steps - warm:
+            raise AssertionError(
+                f"recipe uncertainty: fused {graphed.config.fused_epochs}, "
+                f"{graphed.step} steps, {graphed.graph_replays} replays; want "
+                f"{n_steps} steps, {n_steps - warm} of them replayed")
+        staged = sum(v.numel() * v.element_size()
+                     for v in graphed._run.data.values())
+        for label, (_, steps, epochs, res) in runs.items():
+            tail = steps[warm + 1:] if label == "graphed" else steps[1:]
+            print(f"recipe: uncertainty {label} (batch {bs}, {STEP_ROWS} rows "
+                  f"staged, {staged / 1e9:.2f} GB): {len(steps)} steps, p50 "
+                  f"{np.median(tail) * 1e3:.4f} ms ({bs / np.median(tail):.0f} "
+                  f"rows/s; host clock to a synchronize; first "
+                  f"{steps[0] * 1e3:.1f} ms), epoch wall "
+                  + " / ".join(f"{e:.3f}" for e in epochs)
+                  + f" s, best val CCC {res['best_val_ccc']:.4f}")
+        print(f"recipe: graphed: {warm} eager warm-up steps, then "
+              f"{graphed.graph_replays} replays of one graph; the capture "
+              f"took {graphed.graph_capture_s * 1e3:.1f} ms (host clock)")
+
+        # Graphed against eager steps from one state and seed, dropout on:
+        # the graphed trainer captures over an epoch of COMPARE_STEPS steps,
+        # the eager one takes its state, and each runs one more epoch.
+        small = ArrayDataset({k: v[:COMPARE_STEPS * bs]
+                              for k, v in splits["train"].items()}, "synthetic")
+        iters = {"synthetic": BatchIterator(small, bs, shuffle=True,
+                                            drop_last=True,
+                                            seed=graphed.config.seed)}
+        graphed.train_epoch(iters, STEP_EPOCHS)
+        eager.load_state_dict(graphed.state_dict())
+        before = graphed.graph_replays
+        got = graphed.train_epoch(iters, STEP_EPOCHS + 1)
+        ref = eager.train_epoch(iters, STEP_EPOCHS + 1)
+        if graphed.graph_replays - before != COMPARE_STEPS:
+            raise AssertionError(f"{graphed.graph_replays - before} of "
+                                 f"{COMPARE_STEPS} steps replayed")
+        if not torch.equal(graphed.generator.get_state(),
+                           eager.generator.get_state()):
+            raise AssertionError("graphed and eager steps drew other seeds")
+        want = eager.model.state_dict()
+        err = max(check_close(f"graphed vs eager {name}", p, want[name],
+                              *GRAPH_TOL)
+                  for name, p in graphed.model.state_dict().items())
+        differ = sum(not torch.equal(p, want[name])
+                     for name, p in graphed.model.state_dict().items())
+        print(f"recipe: {COMPARE_STEPS} graphed vs {COMPARE_STEPS} eager steps "
+              f"from one state, dropout on: train loss {got['loss']:.7f} vs "
+              f"{ref['loss']:.7f}; parameters max abs diff {err:.3e} (rtol, "
+              f"atol {GRAPH_TOL}); {differ} of {len(want)} parameter tensors "
+              f"differ in any bit")
+        profile_window(torch, f"an epoch of {COMPARE_STEPS} graphed steps",
+                       lambda: graphed.train_epoch(iters, STEP_EPOCHS + 2),
+                       windows=3)
+        batch = eager._batch_from_indices(small, np.arange(bs))
+        profile_window(torch, f"eager train step at batch {bs}",
+                       lambda: eager._train_step(batch, 1.0, 1.0))
+        del graphed, eager, runs, data, splits, small, iters, batch
+
+        # (e) the headline experiment's twin, cut to size.
+        fused = []
+        saved = timed_method(DEERTrainer, "_fused_step", fused, torch)
+        stem = os.path.join(out, "twin", "RESULTS_synthetic_h100")
+        t0 = time.perf_counter()
+        try:
+            rc = synthetic_headline.main(
+                ["--n_train", str(TWIN_ROWS), "--epochs", str(TWIN_EPOCHS),
+                 "--out", stem])
+        finally:
+            DEERTrainer._fused_step = saved
+        wall = time.perf_counter() - t0
+        with open(stem + ".json") as f:
+            payload = json.load(f)
+        with open(stem + ".md") as f:
+            md = f.read()
+        metrics = [payload["best_val_ccc"], payload["ece_calibrated"],
+                   payload["test"]["ccc_average"], payload["test"]["ece"],
+                   payload["uncertainty"]["uncertainty_error_correlation"]]
+        n_twin = TWIN_EPOCHS * (TWIN_ROWS // bs)
+        if rc != 0 or len(fused) != n_twin or not all(map(math.isfinite, metrics)) \
+                or "| CCC average |" not in md or payload["n_params"] != 3_918_324:
+            raise AssertionError(f"twin: rc {rc}, {len(fused)} of {n_twin} "
+                                 f"fused steps, metrics {metrics}")
+        print(f"recipe: the headline twin at {TWIN_ROWS} rows, {TWIN_EPOCHS} "
+              f"epochs ({len(fused)} fused steps): wall {wall:.1f} s (train "
+              f"{payload['train_time_s']:.1f} s), test CCC "
+              f"{payload['test']['ccc_average']:.4f}, calibrated ECE "
+              f"{payload['ece_calibrated']:.4f}, uncertainty-error r "
+              f"{payload['uncertainty']['uncertainty_error_correlation']:.4f}; "
+              f"platform {payload['platform']!r}")
 
 
 def main() -> int:
@@ -1956,6 +2083,7 @@ def main() -> int:
     k4_record = phase_k4(torch, k4)
     k4_record["launches"], err = phase_main(torch, k4)
     k4_record["max_abs_err"] = max(k4_record["max_abs_err"], err)
+    phase_recipe(torch)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

@@ -379,8 +379,7 @@ def test_factories(tmp_path):
 
 def test_unported_knobs_raise(tmp_path):
     model = CompleteDEERModel(DEERModelConfig(**WIDTH))
-    for kw in (dict(fused_epochs=True), dict(remat=True),
-               dict(storage_dtype="bfloat16")):
+    for kw in (dict(remat=True), dict(storage_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             DEERTrainer(model, TrainingConfig(**kw), device="cpu")
     with pytest.raises(NotImplementedError):

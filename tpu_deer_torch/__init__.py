@@ -22,9 +22,12 @@ follow the reference so each piece has an obvious counterpart:
   tpu_deer.models.*            → tpu_deer_torch.models.*
   tpu_deer.train.{trainer,checkpoint,raw_trainer}
                                → tpu_deer_torch.train.*
-  tpu_deer.eval.{ood,evaluator,statistics,calibration,conformal}
+  tpu_deer.eval.{ood,evaluator,statistics,calibration,conformal,
+                 uncertainty,comprehensive}
                                → tpu_deer_torch.eval.* (numpy parts: own
                                  copies)
+  experiments/synthetic_headline.py
+                               → tpu_deer_torch.experiments.synthetic_headline
   tpu_deer.utils.{config,logging}
                                → tpu_deer_torch.utils.*
   tpu_deer.serve               → tpu_deer_torch.serve (float and int8)

@@ -10,7 +10,10 @@ Port of `tpu_deer/cli.py`:
 `--platform auto` (the default) and `cuda` run on the CUDA card and raise
 without one; `cpu` runs on the CPU. Width comes from the config, as in the
 reference: `--mode full --quick` trains the flagship (3,918,324 params) on
-the 512/128/128-row synthetic fixture, batch 32, 8 epochs.
+the 512/128/128-row synthetic fixture, batch 32, 8 epochs. `--recipe
+uncertainty` is the headline recipe (batch 4,096, 100 epochs), trained with
+fused epochs, a CUDA graph of the train step on the card; `--quick` turns
+them off, as in the reference.
 
 Not ported yet, and raising NotImplementedError: plots (`--mode visualize`;
 `--mode full` writes `"plots": null`), `--mode export`, `--raw`,

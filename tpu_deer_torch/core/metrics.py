@@ -1,7 +1,8 @@
 """Host-side metrics in numpy: own copy of the reference's `ccc_np`,
-`pearson_np`, `reliability_np`, `ece_np` and `evaluate_predictions`
-(`tpu_deer/core/metrics.py`), for the trainers' validation and the
-evaluator. The jnp metrics and the significance tests are not ported yet.
+`pearson_np`, `reliability_np`, `ece_np`, `evaluate_predictions` and
+`statistical_significance_test` (`tpu_deer/core/metrics.py`), for the
+trainers' validation and the evaluators. The jnp metrics and
+`cross_dataset_transfer_effectiveness` are not ported yet.
 """
 
 from __future__ import annotations
@@ -125,3 +126,27 @@ def evaluate_predictions(
             unc = unc.mean(axis=1)
         results["uncertainty_error_correlation"] = pearson_np(err, unc)
     return results
+
+
+def statistical_significance_test(predictions1: np.ndarray, targets: np.ndarray,
+                                  predictions2: np.ndarray,
+                                  alpha: float = 0.05) -> dict:
+    """Paired t-test and Cohen's d between two models' absolute errors (the
+    per-row mean over dimensions); effect size small, medium (|d| > 0.5) or
+    large (|d| > 0.8)."""
+    from scipy import stats as sp_stats
+
+    errors1 = np.abs(np.asarray(predictions1) - np.asarray(targets))
+    errors2 = np.abs(np.asarray(predictions2) - np.asarray(targets))
+    if errors1.ndim > 1:
+        errors1 = errors1.mean(axis=1)
+        errors2 = errors2.mean(axis=1)
+    t_stat, p_value = sp_stats.ttest_rel(errors1, errors2)
+    pooled_std = np.sqrt((np.var(errors1) + np.var(errors2)) / 2.0)
+    cohens_d = float((np.mean(errors1) - np.mean(errors2)) / pooled_std
+                     if pooled_std > 0 else 0.0)
+    effect = ("large" if abs(cohens_d) > 0.8 else
+              "medium" if abs(cohens_d) > 0.5 else "small")
+    return {"t_statistic": float(t_stat), "p_value": float(p_value),
+            "cohens_d": cohens_d, "effect_size": effect,
+            "significant": bool(p_value < alpha), "alpha": alpha}

@@ -37,9 +37,26 @@ the straight one. Validation, the serving-channel choice, plateau and spike
 backoff with rollback to the best state, checkpointing and `predict`
 follow the reference.
 
+Fused epochs (`fused_epochs=True`; the reference's one `lax.scan` an
+epoch): the epoch's datasets are staged once as one array set, the epoch's
+[steps, batch] global index matrix and per-step dataset weights are copied
+to the device once, and one step function does everything on the device:
+it reads row i of the matrix and weight i (i a device counter), gathers the
+batch, runs the forward, loss, gradients, the non-finite gate and the
+optimizer's update (`train/optim.py`), adds the step's scalars into device
+sums and advances i. The epoch's metrics are the sums over the steps,
+fetched once. On a card that function is captured in a CUDA graph (one a
+micro-step phase under accumulation) after `GRAPH_WARMUP` eager steps on a
+side stream, which are the epoch's first real steps, and replayed for the
+rest; between replays the host only seeds the dropout generator
+(`train/rng.py`) and counts. A failed capture raises. The graph bakes in
+the TF32 settings in force when it was captured; a change of them
+captures again. On the CPU the same function runs uncaptured. Data over
+`STAGE_BYTES_LIMIT` take the per-step path, as in the reference.
+
 Knobs that only pick how XLA executes, or belong to later work, raise
-NotImplementedError away from their defaults: `fused_epochs=True`,
-`remat=True`, `storage_dtype` other than float32, a `mesh` or `runtime`,
+NotImplementedError away from their defaults: `remat=True`,
+`storage_dtype` other than float32, a `mesh` or `runtime`,
 `predict_mc_dropout`, and distillation targets in a dataset. `rng_impl` is
 accepted and has no effect.
 """
@@ -64,7 +81,7 @@ from tpu_deer_torch.device import DeviceLike, resolve_device
 from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
 from tpu_deer_torch.train.checkpoint import CheckpointManager
 from tpu_deer_torch.train.optim import AdamW
-from tpu_deer_torch.train.rng import seeded_dropout
+from tpu_deer_torch.train.rng import draw_seed, forked_rng, seed_global, seeded_dropout
 from tpu_deer_torch.utils.logging import MetricWriter
 
 
@@ -124,7 +141,6 @@ class TrainingConfig:
 
 def _check_supported(config: TrainingConfig, mesh, runtime) -> None:
     unported = {
-        "fused_epochs=True": bool(config.fused_epochs),
         "remat=True": config.remat,
         f"storage_dtype={config.storage_dtype!r}": config.storage_dtype != "float32",
         "a device mesh": mesh is not None,
@@ -168,6 +184,26 @@ def exponential_schedule(init_value: float, transition_steps: int,
                           init_value * decay_rate ** (count / transition_steps))
 
 
+@dataclasses.dataclass
+class _FusedRun:
+    """The device buffers a fused epoch's step reads and writes. A captured
+    graph holds their addresses, so between epochs they are written in
+    place, never rebound."""
+
+    data: dict  # the epoch's datasets, staged as one array set
+    idx: torch.Tensor  # [steps, batch] int64 global row indices
+    weights: torch.Tensor  # [steps] float32 dataset weights
+    lr_scale: torch.Tensor  # [] float32
+    i: torch.Tensor  # [1] int64: the step within the epoch
+    sums: Optional[torch.Tensor] = None  # the step scalars' sums
+    keys: tuple = ()  # their names
+    eager: int = 0  # steps taken uncaptured (the warm-up on a card)
+    # micro-step phase → (graph, the optimizer's table and the TF32
+    # settings it was captured with)
+    graphs: dict = dataclasses.field(default_factory=dict)
+    stream: Optional[torch.cuda.Stream] = None  # the warm-up's side stream
+
+
 class DEERTrainer:
     """Trains `model` (a CompleteDEERModel with its weights, moved to
     `device`: None = the CUDA card) with `config`. `steps_per_epoch` sizes
@@ -177,6 +213,10 @@ class DEERTrainer:
     # batch gathered there from its index vector; larger data is sliced on
     # the host and copied per step.
     STAGE_BYTES_LIMIT = 6_000_000_000
+    # Eager steps a fused run takes on a card before its first capture (at
+    # least one of each micro-step phase): lazy set-up such as cuBLAS's
+    # workspaces must happen outside a capture.
+    GRAPH_WARMUP = 3
 
     def __init__(self, model: CompleteDEERModel,
                  config: TrainingConfig = TrainingConfig(),
@@ -208,6 +248,10 @@ class DEERTrainer:
             "val_ece": [], "learning_rate": []}
         self._best_state = None  # spike rollback: copy of the best state
         self._staged: dict[int, Optional[dict]] = {}
+        self._combined: dict[tuple, Optional[tuple]] = {}
+        self._run: Optional[_FusedRun] = None
+        self.graph_replays = 0  # fused steps replayed from a CUDA graph
+        self.graph_capture_s = 0.0  # host seconds spent capturing them
         self._plateau_scale = 1.0
         self._plateau_best = -np.inf
         self._plateau_wait = 0
@@ -241,6 +285,27 @@ class DEERTrainer:
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in arrays.items()}
         return self._staged[key]
+
+    def _stage_combined(self, datasets: Mapping[str, ArrayDataset]):
+        """The datasets staged as one array set with each one's row offset,
+        for a fused epoch's global indices: (arrays, offsets), or None above
+        STAGE_BYTES_LIMIT. Keys that not every dataset has are left out (a
+        partial column would misalign the global indices)."""
+        key = tuple(sorted((n, id(d)) for n, d in datasets.items()))
+        if key not in self._combined:
+            names = sorted(datasets)
+            common = [k for k in BATCH_KEYS
+                      if all(k in d.arrays for d in datasets.values())]
+            sizes = [len(datasets[n]) for n in names]
+            offsets = dict(zip(names, (sum(sizes[:j]) for j in range(len(names)))))
+            nbytes = sum(datasets[n].arrays[k].nbytes for n in names for k in common)
+            staged = {}
+            for k in common if nbytes <= self.STAGE_BYTES_LIMIT else ():
+                parts = [torch.from_numpy(np.ascontiguousarray(datasets[n].arrays[k]))
+                         .to(self.device) for n in names]
+                staged[k] = parts[0] if len(parts) == 1 else torch.cat(parts)
+            self._combined[key] = (staged, offsets) if staged else None
+        return self._combined[key]
 
     def _batch_from_indices(self, dataset: ArrayDataset, idx: np.ndarray) -> dict:
         """Gather on the device when the dataset is staged; otherwise slice
@@ -315,6 +380,14 @@ class DEERTrainer:
         self.model.train()
         with seeded_dropout(self.generator, self.device):
             loss, aux = self._loss_fn(batch, dataset_weight)
+        grads, gate, aux = self._gated_grads(loss, aux)
+        self.optimizer.step(grads, gate, lr_scale)
+        self.step += 1
+        return aux
+
+    def _gated_grads(self, loss, aux):
+        """The step's gradients, the update gate and the step's scalars, the
+        non-finite containment applied; nothing waits for the card."""
         params = list(self._params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -333,9 +406,87 @@ class DEERTrainer:
             # gradient to the mean; gating the emitted update would drop
             # the good ones.
             gate = okf if self._accum == 1 else None
-        self.optimizer.step(grads, gate, lr_scale)
-        self.step += 1
-        return aux
+        return grads, gate, aux
+
+    # -- fused epochs --------------------------------------------------------
+    def _fused_epoch(self, train_iterators: dict, epoch: int, combined: tuple,
+                     lr_scale: float) -> dict[str, float]:
+        staged, offsets = combined
+        rows, weights = [], []
+        for name, idx, _ in self._multi_dataset_iterator(train_iterators, epoch):
+            rows.append(idx + offsets[name])
+            weights.append(self.config.dataset_weights.get(name.lower(), 1.0))
+        if not rows:
+            return {}
+        run = self._run
+        shape = (len(rows), len(rows[0]))
+        if run is None or run.data is not staged or tuple(run.idx.shape) != shape:
+            run = self._run = _FusedRun(
+                staged, torch.empty(shape, dtype=torch.int64, device=self.device),
+                torch.empty(len(rows), device=self.device),
+                torch.empty((), device=self.device),
+                torch.empty(1, dtype=torch.int64, device=self.device))
+        run.idx.copy_(torch.from_numpy(np.stack(rows).astype(np.int64)))
+        run.weights.copy_(torch.tensor(weights, dtype=torch.float32))
+        run.lr_scale.fill_(lr_scale)
+        run.i.zero_()
+        if run.sums is not None:
+            run.sums.zero_()
+        opt = self.optimizer
+        opt.reserve(opt.state["count"] + len(rows) // self._accum + 1)
+        self.model.train()
+        with forked_rng(self.device):
+            for _ in rows:
+                seed_global(self.device, draw_seed(self.generator))
+                self._fused_step(run)
+                opt.advance()
+                self.step += 1
+        return dict(zip(run.keys, (run.sums / len(rows)).tolist()))
+
+    def _fused_step(self, run: _FusedRun) -> None:
+        """One step of a fused epoch: uncaptured on the CPU and during a
+        card's warm-up (on a side stream), else a replay of the phase's
+        graph, captured first where it is missing or stale."""
+        phase = self.optimizer.phase
+        if self.device.type != "cuda":
+            self._fused_body(run, phase)
+            run.eager += 1
+            return
+        if run.eager < max(self.GRAPH_WARMUP, self._accum):
+            run.stream = run.stream or torch.cuda.Stream(self.device)
+            run.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(run.stream):
+                self._fused_body(run, phase)
+            torch.cuda.current_stream(self.device).wait_stream(run.stream)
+            run.eager += 1
+            return
+        settings = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                    torch.get_float32_matmul_precision())
+        graph, table, captured = run.graphs.get(phase, (None, None, None))
+        if table is not self.optimizer.table or captured != settings:
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph):
+                self._fused_body(run, phase)
+            self.graph_capture_s += time.perf_counter() - t0
+            run.graphs[phase] = (graph, self.optimizer.table, settings)
+        graph.replay()
+        self.graph_replays += 1
+
+    def _fused_body(self, run: _FusedRun, phase: int) -> None:
+        """The fused step's device work at micro-step `phase`: no host sync,
+        no host value that changes between steps."""
+        idx = run.idx.index_select(0, run.i)[0]
+        batch = {k: v.index_select(0, idx) for k, v in run.data.items()}
+        loss, aux = self._loss_fn(batch, run.weights.index_select(0, run.i)[0])
+        grads, gate, aux = self._gated_grads(loss, aux)
+        self.optimizer.update(grads, gate, run.lr_scale, phase)
+        values = torch.stack(list(aux.values()))
+        if run.sums is None:
+            run.keys, run.sums = tuple(aux), torch.zeros_like(values)
+        run.sums.add_(values)
+        run.i.add_(1)
 
     def _eval_step(self, batch: dict, params: Optional[dict] = None,
                    with_fused: bool = False, with_nig: bool = False) -> dict:
@@ -419,6 +570,11 @@ class DEERTrainer:
                     "distillation targets are not ported yet (ROADMAP queue 1, "
                     "item 12)")
         lr_scale = self._plateau_scale * self._spike_scale
+        combined = (self._stage_combined({n: it.dataset for n, it in
+                                          train_iterators.items()})
+                    if self.config.fused_epochs else None)
+        if combined is not None:
+            return self._fused_epoch(train_iterators, epoch, combined, lr_scale)
         auxs = []
         for name, idx, _ in self._multi_dataset_iterator(train_iterators, epoch):
             batch = self._batch_from_indices(train_iterators[name].dataset, idx)
@@ -495,6 +651,11 @@ class DEERTrainer:
             best_serving_channel = meta.get(
                 "best_serving_channel", meta.get("serving_channel", "eabs"))
 
+        # The optimizer's table covers the run up front (a fused run's graph
+        # would be captured again over a larger one).
+        steps = sum(len(it) for it in train_iters.values())
+        self.optimizer.reserve(self.optimizer.state["count"] + 1 + max(
+            0, num_epochs - start_epoch) * (steps // self._accum + 1))
         patience = 0
         t0 = time.time()
         for epoch in range(start_epoch, num_epochs):
