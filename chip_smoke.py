@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, streaming, raw-media training and
-feature-level training-to-int8-serving paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, streaming, raw-media training,
+feature-level training-to-int8-serving and export paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -19,9 +19,13 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
   3. slice  — the flagship model (3,918,324 params, seeded init) behind
               MultimodalFeatureExtractor → InferenceEngine.predict on 300
               synthetic utterances (0.5-12 s, all four length buckets) with
-              video frames and texts, at request sizes 1, 8, 64, 256 and 300;
-              checks the outputs, the kernel launches, and that features and
-              predictions from the kernel match those from the plain twin;
+              video frames and texts, at request sizes 1, 8, 64, 256 and 300,
+              each bucket a CUDA graph captured at warm-up; checks the
+              outputs, the kernel launches, that features and predictions
+              from the kernel match those from the plain twin, and the
+              graphed predictions against the eager engine's (the count of
+              elements differing in any bit); p50, busy share and capture
+              time graphed and eager;
   4. K2     — the fused MFCC-from-frames kernel against its plain twin at
               R ∈ {16, 4096, 597} rows of n_fft 1024 and 597 rows of n_fft
               512, and on the same edge cases at n_fft 512 and 1024; bit for
@@ -29,14 +33,19 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               shared memory; its time at the tick's 4096 rows beside its
               bound;
   5. stream — a StreamingRecognizer over the flagship at 256 streams, chunk
-              4096, with an OOD detector: 8 ticks (one with inactive slots,
-              one after a reset), one K2 launch per tick, kernel path vs
-              plain twin, and a slot's streamed features vs the offline
-              extractor (K1) on the same audio;
+              4096, with an OOD detector: 8 ticks replayed from the tick's
+              CUDA graph (one with inactive slots, one after a reset)
+              against 8 eager ticks (outputs and state), kernel path vs
+              plain twin, a slot's streamed features vs the offline
+              extractor (K1) on the same audio; the 8 replayed ticks run
+              under the profiler, and K2's launches are its device events
+              there, one a tick (raises where they are not measured);
   6. server — serve() on 127.0.0.1 with 64 stream slots and an OOD
-              detector: 16 clients × 4 /stream/push plus /predict requests,
-              responses held against a direct StreamingRecognizer run and a
-              direct predict; then tick and push latency and a profile;
+              detector, graphed: 16 clients × 4 /stream/push plus /predict
+              requests, responses held against a direct StreamingRecognizer
+              run (graphed, and it against an eager one) and a direct
+              predict; then tick latency graphed and eager with a profile
+              of each, and push latency;
   7. K3     — the flash-attention kernels (K3a forward, K3b dq, K3c dk/dv):
               the count of tensor-core (HGMMA) and cp.async (LDGSTS)
               instructions in each kernel's SASS; all six outputs
@@ -81,7 +90,13 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               every artifact checked; the best checkpoint served by
               InferenceEngine.from_checkpoint in float and int8 (int8 vs
               float, int8 vs the dequantized weights in float, int8 on the
-              card, predict p50 at 1-256), with K4's launches over both
+              card; graphed vs eager, predict p50 and busy share at 1-300),
+              exported by `cli --mode export` in float and int8 (export
+              wall, each file's bytes) and served by ExportedEngine (graphed
+              vs eager, vs the live engine, p50), and `python -m
+              tpu_deer_torch.server` in a subprocess over the artifact and
+              over the checkpoint with 4 stream slots (/healthz, one
+              /predict, a session's push), with K4's launches over both
               (0: the engines round to nearest, as the reference's); K4
               by direct calls of its public function on each of the
               checkpoint's 44 Dense kernels, each held against the plain
@@ -114,6 +129,7 @@ import copy
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -191,7 +207,7 @@ COMPARE_STEPS, GRAPH_TOL = 8, (1e-5, 1e-5)
 # The headline experiment's twin, cut from 1,048,576 rows and 100 epochs
 # (validation every 10 epochs: one validation).
 TWIN_ROWS, TWIN_EPOCHS = 131072, 10
-PREDICT_SIZES = (1, 8, 64, 256)
+PREDICT_SIZES = (1, 8, 64, 256, 300)  # every bucket, and a chunked request
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -213,6 +229,31 @@ def check_close(name, got, ref, rtol, atol):
             f"{name}: {int(bad.sum())} of {bad.numel()} values outside "
             f"rtol={rtol} atol={atol}; max abs err {err.max().item():.3e}")
     return err.max().item()
+
+
+def graph_vs_eager(torch, label, got, ref):
+    """Graphed outputs against the eager path's through the same entry point
+    ({key: array}): booleans equal, numbers within GRAPH_TOL (equal bits are
+    expected). Returns (elements differing in any bit, elements, max abs
+    err)."""
+    differ = total = 0
+    err = 0.0
+    for key, r in ref.items():
+        g = np.asarray(got[key])
+        r = np.asarray(r)
+        if g.shape != r.shape:
+            raise AssertionError(f"{label} {key}: shape {g.shape} graphed, "
+                                 f"{r.shape} eager")
+        differ += int((g != r).sum())
+        total += r.size
+        if r.dtype == bool:
+            if not np.array_equal(g, r):
+                raise AssertionError(f"{label} {key}: graphed and eager differ")
+            continue
+        err = max(err, check_close(f"{label} {key} graphed vs eager",
+                                   torch.from_numpy(g), torch.from_numpy(r),
+                                   *GRAPH_TOL))
+    return differ, total, err
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -550,7 +591,9 @@ def phase_slice(torch, k1):
     if n_params != 3_918_324:
         raise AssertionError(f"model has {n_params} params")
     extractor = MultimodalFeatureExtractor()
-    engine = InferenceEngine(model)
+    engine = InferenceEngine(model)  # graphed: one CUDA graph a bucket
+    eager = InferenceEngine(model, graphs=False)
+    engine.warmup()  # captures every bucket, as the server's start-up does
     sizes = (1, 8, 64, 256, 300)
 
     # The main path, counted: featurise everything, then serve every size.
@@ -589,6 +632,17 @@ def phase_slice(torch, k1):
                    for key, v in pred_plain.items())
     print(f"slice: features kernel vs plain max abs err {err:.3e}, "
           f"predictions {pred_err:.3e}")
+    differ = total = 0
+    graph_err = 0.0
+    for n, out in outs.items():
+        d, t, e = graph_vs_eager(torch, f"predict({n})", out,
+                                 eager.predict(audio[:n], video[:n], text[:n]))
+        differ, total, graph_err = differ + d, total + t, max(graph_err, e)
+    print(f"slice: predict graphed vs eager at sizes {sizes}: {differ} of "
+          f"{total} elements differ in any bit, max abs err {graph_err:.3e} "
+          f"(GRAPH_TOL); capture ms per bucket "
+          + ", ".join(f"{b}: {sec * 1e3:.1f}"
+                      for b, sec in engine.bucket_graphs.capture_s.items()))
 
     # Timing (after the counted run).
     reps = 3
@@ -601,19 +655,18 @@ def phase_slice(torch, k1):
     print(f"featurisation: {feat_ms:.2f} ms for {n_utt} utterances "
           f"({float(durations.sum()):.1f} s of audio), "
           f"{feat_ms / n_utt:.4f} ms per utterance (host clock, p50 of {reps})")
+    feats = (audio, video, text)
     for n in sizes:
-        lat = []
-        for _ in range(30):
-            t0 = time.perf_counter()
-            engine.predict(audio[:n], video[:n], text[:n])
-            lat.append(time.perf_counter() - t0)
-        print(f"predict request size {n}: p50 {np.median(lat) * 1e3:.4f} ms "
-              f"(host clock, 30 requests, outputs copied to the host)")
+        print(f"predict request size {n}: p50 graphed "
+              f"{predict_p50(engine, feats, n):.4f} ms, eager "
+              f"{predict_p50(eager, feats, n):.4f} ms (host clock, 30 "
+              f"requests, outputs copied to the host)")
     profile_window(torch, f"featurise {n_utt} utterances",
                    lambda: extractor.audio.extract_batch(signals))
     for n in (1, 256):
-        profile_window(torch, f"predict {n}",
-                       lambda: engine.predict(audio[:n], video[:n], text[:n]))
+        for label, e in (("graphed", engine), ("eager", eager)):
+            profile_window(torch, f"predict {n} {label}",
+                           lambda: e.predict(audio[:n], video[:n], text[:n]))
     return launches
 
 
@@ -761,8 +814,9 @@ def check_outputs(out, rows, label):
 
 
 def phase_stream(torch, k2, model, detector):
-    """256 live streams at full width; returns (K2 launches, recognizer,
-    the last tick's chunks and context)."""
+    """256 live streams at full width, the tick replayed from its CUDA
+    graph; returns (K2 launches, the graphed and the eager recognizer, the
+    last tick's chunks and context)."""
     from tpu_deer_torch.ops.audio_frontend import (
         extract_utterance_features_batch,
     )
@@ -779,30 +833,75 @@ def phase_stream(torch, k2, model, detector):
     recs = {plain: StreamingRecognizer(model, STREAMS, cfg, detector,
                                        device=DEVICE, plain=plain)
             for plain in (False, True)}
+    eager = StreamingRecognizer(model, STREAMS, cfg, detector, device=DEVICE,
+                                graphs=False)
 
     def drive(rec):
-        outs = []
+        outs, states = [], []
         for t in range(TICKS):
             if t == 5:
                 rec.reset_streams(reset_ids)
             active = ~inactive if t == 3 else None
             outs.append(rec.push(audio[:, t * chunk:(t + 1) * chunk],
                                  video, text, active))
-        return outs
+            states.append({f"state {i}": f.cpu().numpy().copy()
+                           for i, f in enumerate(rec.state)})
+        return outs, states
 
-    # The main path, counted.
-    k2.mfcc_frames.launches = 0
-    outs = drive(recs[False])
-    launches = k2.mfcc_frames.launches
-    if launches != TICKS:
-        raise AssertionError(f"K2 launched {launches} times in {TICKS} ticks")
-    print(f"stream: {STREAMS} streams × {TICKS} ticks of {chunk} samples, K2 "
-          f"launches {launches}, slots {int(inactive.sum())} idle on tick 3, "
-          f"{len(reset_ids)} reset before tick 5")
+    # The main path, counted from the device's own events: the tick's graph
+    # is captured first, as StreamingSessionService does at start-up (two
+    # eager warm-up runs and the capture call K2's wrapper), then every
+    # slot starts from silence and TICKS ticks replay it. A replay launches
+    # K2 from the graph, not through its wrapper, so K2's launches are its
+    # device events in that run (a window that lost some is run again).
+    rec = recs[False]
+    rec.warmup()
+    replays = lambda: rec._graph.replays if rec.graphs else 0
+    run = {}
+
+    def main_path():
+        rec.reset_streams(np.arange(STREAMS))
+        k2.mfcc_frames.launches = 0
+        before = replays()
+        run["outs"], run["states"] = drive(rec)
+        run["wrapper"] = k2.mfcc_frames.launches
+        run["replays"] = replays() - before
+
+    got = profiled(torch, main_path, {"mfcc_frames": TICKS}, windows=6)
+    if got is None:
+        raise AssertionError(f"K2's launches in the main path's {TICKS} "
+                             f"ticks not measured: the profiler missed "
+                             f"device events in every window")
+    k2_ms = [ms for name, ms in got[0] if "mfcc_frames" in name]
+    outs, states, wrapper = run["outs"], run["states"], run["wrapper"]
+    if len(k2_ms) != TICKS or (rec.graphs and (
+            wrapper or run["replays"] != TICKS)):
+        raise AssertionError(
+            f"{len(k2_ms)} K2 device events in {TICKS} ticks ({run['replays']}"
+            f" replays, the wrapper's count {wrapper})")
+    launches = len(k2_ms)
+    print(f"stream: {STREAMS} streams × {TICKS} ticks of {chunk} samples, "
+          f"{run['replays']} replayed from the tick's graph (capture "
+          f"{(rec.capture_s or 0) * 1e3:.1f} ms); {launches} K2 device "
+          f"events in them (profiler; the wrapper's count {wrapper}): one a "
+          f"tick, {np.median(k2_ms):.4f} ms on the device (median); slots "
+          f"{int(inactive.sum())} idle on tick 3, {len(reset_ids)} reset "
+          f"before tick 5")
     for t, out in enumerate(outs):
         check_outputs(out, STREAMS, f"tick {t}")
 
-    plain_outs = drive(recs[True])
+    eager_outs, eager_states = drive(eager)
+    differ = total = 0
+    err = 0.0
+    for t in range(TICKS):
+        for got, ref in ((outs[t], eager_outs[t]), (states[t], eager_states[t])):
+            d, n, e = graph_vs_eager(torch, f"tick {t}", got, ref)
+            differ, total, err = differ + d, total + n, max(err, e)
+    print(f"stream: {TICKS} graphed vs {TICKS} eager ticks (outputs and "
+          f"state): {differ} of {total} elements differ in any bit, max abs "
+          f"err {err:.3e} (GRAPH_TOL)")
+
+    plain_outs, _ = drive(recs[True])
     err = max(check_close(f"tick {t} {key} kernel vs plain",
                           torch.from_numpy(out[key]),
                           torch.from_numpy(ref[key]), *FEAT_TOL)
@@ -821,7 +920,9 @@ def phase_stream(torch, k2, model, detector):
     print(f"stream: slot 0 after {TICKS} ticks vs the offline extractor (K1) "
           f"on the same {TICKS * chunk} samples: correlation {corr:.7f}, "
           f"mean abs diff {np.abs(streamed - offline).mean():.3e}")
-    return launches, recs[False], audio[:, -chunk:], video, text
+
+    last = audio[:, -chunk:]
+    return launches, rec, eager, last, video, text
 
 
 def phase_server(torch, model, detector):
@@ -843,9 +944,12 @@ def phase_server(torch, model, detector):
     pcm = np.clip(np.round(pcm * 32767), -32768, 32767).astype("<i2")
     audio = pcm.astype(np.float32) / 32768.0
     video, text = context(rng, CLIENTS)
+    # Graphed, as main() serves: the tick captured at construction, every
+    # bucket at warm-up, before the server's threads start.
     streaming = StreamingSessionService(model, SERVER_SLOTS,
                                         ood_detector=detector, device=DEVICE)
     engine = InferenceEngine(model, ood_detector=detector, device=DEVICE)
+    engine.warmup()
     service = PredictionService(engine, (84, 256, 768), micro_batch=True,
                                 streaming=streaming)
     server = serve(service, "127.0.0.1", 0)
@@ -915,19 +1019,25 @@ def phase_server(torch, model, detector):
         if got["is_ood"] != ref["is_ood"].tolist():
             raise AssertionError("/predict is_ood differs from predict")
 
-    # The same chunks through a direct recognizer, each session in its slot.
+    # The same chunks through a direct recognizer, each session in its slot,
+    # graphed as the service's, and through an eager one.
     rec = StreamingRecognizer(model, SERVER_SLOTS, ood_detector=detector,
                               device=DEVICE)
+    rec_eager = StreamingRecognizer(model, SERVER_SLOTS, ood_detector=detector,
+                                    device=DEVICE, graphs=False)
     ctx_v = np.zeros((SERVER_SLOTS, 256), np.float32)
     ctx_t = np.zeros((SERVER_SLOTS, 768), np.float32)
     ctx_v[slots], ctx_t[slots] = video, text
-    err = 0.0
+    err, differ, total, graph_err = 0.0, 0, 0, 0.0
     for k in range(PUSHES):
         chunks = np.zeros((SERVER_SLOTS, chunk), np.float32)
         chunks[slots] = audio[:, k * chunk:(k + 1) * chunk]
         active = np.zeros(SERVER_SLOTS, bool)
         active[slots] = True
         out = rec.push(chunks, ctx_v, ctx_t, active)
+        d, n, e = graph_vs_eager(torch, f"push {k}", out,
+                                 rec_eager.push(chunks, ctx_v, ctx_t, active))
+        differ, total, graph_err = differ + d, total + n, max(graph_err, e)
         for i, slot in enumerate(slots):
             resp = resps[i][k]
             for key in ("mu", "uncertainty", "calibrated_uncertainty",
@@ -943,29 +1053,35 @@ def phase_server(torch, model, detector):
     print(f"server: {CLIENTS} clients × {PUSHES} /stream/push in {ticks} "
           f"ticks ({CLIENTS * PUSHES / ticks:.2f} sessions a tick) + 3 "
           f"/predict; responses vs a direct recognizer: max abs err "
-          f"{err:.3e}; /predict vs predict within FEAT_TOL")
+          f"{err:.3e}; /predict vs predict within FEAT_TOL; the direct "
+          f"recognizer graphed vs eager: {differ} of {total} elements differ "
+          f"in any bit, max abs err {graph_err:.3e} (GRAPH_TOL)")
     return lat
 
 
-def phase_stream_timing(torch, rec, chunks, video, text, push_lat):
-    """Tick and push latency (host clock) and one profiled tick."""
+def phase_stream_timing(torch, recs, chunks, video, text, push_lat):
+    """Tick latency (host clock), graphed and eager, with a profiled tick
+    each; push latency."""
     reps = 30
-    lat = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        rec.push(chunks, video, text)
-        lat.append(time.perf_counter() - t0)
-    p50 = float(np.median(lat))
     audio_s = STREAMS * chunks.shape[1] / SR
-    print(f"stream tick at {STREAMS} streams: p50 {p50 * 1e3:.4f} ms (host "
-          f"clock, {reps} ticks, outputs copied to the host); real-time "
-          f"factor {audio_s / p50:.1f} ({audio_s:.3f} s of audio a tick)")
+    for label, rec in recs.items():
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            rec.push(chunks, video, text)
+            lat.append(time.perf_counter() - t0)
+        p50 = float(np.median(lat))
+        print(f"stream tick at {STREAMS} streams, {label}: p50 "
+              f"{p50 * 1e3:.4f} ms (host clock, {reps} ticks, outputs copied "
+              f"to the host); real-time factor {audio_s / p50:.1f} "
+              f"({audio_s:.3f} s of audio a tick)")
+        profile_window(torch, f"stream tick {STREAMS} {label}",
+                       lambda: rec.push(chunks, video, text),
+                       expect={"mfcc_frames": 1}, windows=3)
     print(f"/stream/push under {CLIENTS} clients: p50 "
           f"{np.median(push_lat) * 1e3:.4f} ms, max "
           f"{np.max(push_lat) * 1e3:.4f} ms (host clock, "
           f"{len(push_lat)} pushes of 16-bit PCM, HTTP + JSON included)")
-    profile_window(torch, f"stream tick {STREAMS}",
-                   lambda: rec.push(chunks, video, text))
 
 
 def ood_detector(rng):
@@ -1813,6 +1929,11 @@ def phase_main(torch, k4):
         engines = {"float": InferenceEngine.from_checkpoint(models, device=DEVICE),
                    "int8": InferenceEngine.from_checkpoint(
                        models, quantize_weights=True, device=DEVICE)}
+        eager = {k: InferenceEngine.from_checkpoint(
+            models, quantize_weights=k == "int8", device=DEVICE, graphs=False)
+            for k in engines}
+        for e in engines.values():
+            e.warmup()
         if any(e.serving_channel != channel for e in engines.values()):
             raise AssertionError("the engines did not take the checkpoint's "
                                  "serving channel")
@@ -1853,12 +1974,35 @@ def phase_main(torch, k4):
               f"vs float on its dequantized weights {deq_err:.3e}; 44 int8 "
               f"kernels on the card, {int8_bytes} B vs {float_bytes} B float "
               f"({int8_bytes / float_bytes:.3f})")
-        big = [np.concatenate([f] * 2)[:max(PREDICT_SIZES)] for f in feats]
+        big = [np.concatenate([f] * 3)[:max(PREDICT_SIZES)] for f in feats]
+        for k, e in engines.items():
+            differ = total = 0
+            err = 0.0
+            for n in PREDICT_SIZES:
+                d, t, m = graph_vs_eager(
+                    torch, f"{k} predict({n})",
+                    e.predict(*(f[:n] for f in big)),
+                    eager[k].predict(*(f[:n] for f in big)))
+                differ, total, err = differ + d, total + t, max(err, m)
+            print(f"main: {k} predict graphed vs eager at sizes "
+                  f"{PREDICT_SIZES}: {differ} of {total} elements differ in "
+                  f"any bit, max abs err {err:.3e} (GRAPH_TOL); capture ms "
+                  f"per bucket " + ", ".join(
+                      f"{b}: {sec * 1e3:.1f}"
+                      for b, sec in e.bucket_graphs.capture_s.items()))
         for n in PREDICT_SIZES:
-            print(f"main: predict {n}: float p50 "
-                  f"{predict_p50(engines['float'], big, n):.4f} ms, int8 p50 "
-                  f"{predict_p50(engines['int8'], big, n):.4f} ms (host clock, "
-                  f"30 requests)")
+            print(f"main: predict {n}: float p50 graphed "
+                  f"{predict_p50(engines['float'], big, n):.4f} ms, eager "
+                  f"{predict_p50(eager['float'], big, n):.4f} ms; int8 p50 "
+                  f"graphed {predict_p50(engines['int8'], big, n):.4f} ms, "
+                  f"eager {predict_p50(eager['int8'], big, n):.4f} ms (host "
+                  f"clock, 30 requests)")
+        for n in (1, 256):
+            for k in engines:
+                for label, e in (("graphed", engines[k]), ("eager", eager[k])):
+                    profile_window(torch, f"predict {n} {k} {label}",
+                                   lambda: e.predict(*(f[:n] for f in big)))
+        phase_export(torch, models, out, platform, engines, big)
 
         # (c) K4 by direct calls of its public function
         # (ops.quantization.quantize_int8_stochastic, the reference's
@@ -1889,8 +2033,169 @@ def phase_main(torch, k4):
         print(f"main: the {len(dense)} direct K4 calls: {host_ms:.4f} ms host "
               f"clock to a synchronize (median of 20 rounds), {ms_text(dev_ms)} "
               f"on the device over {events} device events (profiler)")
-        del weights, results, engines
+        del weights, results, engines, eager
     return launches, k4_max_err
+
+
+def wait_for_line(proc, marker, timeout):
+    """The first line of proc's stderr holding `marker` (None if the
+    process ends or `timeout` s pass first); a thread keeps draining the
+    pipe after it."""
+    found, lines = threading.Event(), []
+
+    def drain():
+        for line in proc.stderr:
+            lines.append(line)
+            if marker in line and not found.is_set():
+                found.set()
+        found.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+    found.wait(timeout)
+    hit = [line for line in lines if marker in line]
+    return hit[0] if hit else None, lines
+
+
+def phase_export(torch, models, out, platform, live, feats):
+    """Phase 10(b'): the quick run's best checkpoint exported by `cli --mode
+    export` in float and int8, served by ExportedEngine (graphed vs eager,
+    vs the live engines); then `python -m tpu_deer_torch.server` in a
+    subprocess, over the float artifact and over the checkpoint with 4
+    stream slots."""
+    from tpu_deer_torch import cli
+    from tpu_deer_torch.export import load_exported
+
+    dirs = {}
+    for k, extra in (("float", []), ("int8", ["--int8"])):
+        root = os.path.join(out, f"export_{k}")
+        t0 = time.perf_counter()
+        rc = cli.main(["--mode", "export", "--model_path", models,
+                       "--output_dir", root, "--experiment_name", "export",
+                       "--platform", platform, *extra])
+        wall = time.perf_counter() - t0
+        d = dirs[k] = os.path.join(root, "exported_model")
+        sizes = {f: os.path.getsize(os.path.join(d, f))
+                 for f in sorted(os.listdir(d))}
+        programs = [n for f, n in sizes.items() if f.endswith(".pt2")]
+        if rc != 0 or len(programs) != 4 or max(programs) >= sizes["params.npz"]:
+            raise AssertionError(f"export {k}: rc {rc}, files {sizes}")
+        engine = load_exported(d, device=DEVICE)
+        eager = load_exported(d, device=DEVICE, graphs=False)
+        t0 = time.perf_counter()
+        engine.warmup()
+        warm = time.perf_counter() - t0
+        differ = total = 0
+        err = live_err = 0.0
+        for n in PREDICT_SIZES:
+            rows = [f[:n] for f in feats]
+            got = engine.predict(*rows)
+            d_, t_, e_ = graph_vs_eager(torch, f"exported {k} predict({n})",
+                                        got, eager.predict(*rows))
+            ref = live[k].predict(*rows)
+            live_err = max(live_err, *(check_close(
+                f"exported {k} vs live {key}", torch.from_numpy(v),
+                torch.from_numpy(ref[key]), *GRAPH_TOL)
+                for key, v in got.items()))
+            differ, total, err = differ + d_, total + t_, max(err, e_)
+        print(f"export {k}: cli --mode export wall {wall:.2f} s; "
+              f"{sum(sizes.values())} B in all: " + ", ".join(
+                  f"{f} {n} B" for f, n in sizes.items())
+              + f"; the programs hold no weights (each under params.npz)")
+        print(f"export {k}: ExportedEngine warm-up (4 captures) {warm:.2f} s; "
+              f"graphed vs eager at sizes {PREDICT_SIZES}: {differ} of "
+              f"{total} elements differ in any bit, max abs err {err:.3e}; "
+              f"vs the live graphed engine max abs err {live_err:.3e} "
+              f"(GRAPH_TOL)")
+        for n in PREDICT_SIZES:
+            print(f"export {k}: predict {n}: p50 graphed "
+                  f"{predict_p50(engine, feats, n):.4f} ms, eager "
+                  f"{predict_p50(eager, feats, n):.4f} ms (host clock, 30 "
+                  f"requests)")
+        profile_window(torch, f"exported predict 256 {k} graphed",
+                       lambda: engine.predict(*(f[:256] for f in feats)))
+        del engine, eager
+
+    # The server's own entry point, over the float artifact and over the
+    # checkpoint with live sessions.
+    rows = [f[:5] for f in feats]
+    payload = dict(zip(("audio", "video", "text"), (r.tolist() for r in rows)))
+    chunk = np.random.default_rng(SEED + 6).normal(
+        scale=0.1, size=4096).astype(np.float32)
+    for source, path, ref in (
+            ("--exported", dirs["float"],
+             load_exported(dirs["float"], device=DEVICE).predict(*rows)),
+            ("--checkpoint", models, live["float"].predict(*rows))):
+        extra = ["--stream_slots", "4"] if source == "--checkpoint" else []
+        with served([source, path, "--platform", platform, *extra]) as (
+                call, started):
+            got = call("/predict", payload)
+            err = max(check_close(f"server {source} /predict {key}",
+                                  torch.tensor(got[key]),
+                                  torch.from_numpy(ref[key]).double(),
+                                  *FEAT_TOL)
+                      for key in ("mu", "uncertainty", "calibrated_uncertainty",
+                                  "expected_abs_error"))
+            note = ""
+            if extra:
+                sid = call("/stream/start", {})["session_id"]
+                pushed = call("/stream/push", {"session_id": sid,
+                                               "audio": chunk.tolist()})
+                call("/stream/end", {"session_id": sid})
+                if len(pushed["mu"]) != 3 or not np.isfinite(pushed["mu"]).all():
+                    raise AssertionError(f"server /stream/push: {pushed}")
+                note = ", one session's start, push and end"
+            health = call("/healthz")
+            if health.get("status") != "ok" or health["requests_served"] != 1 \
+                    or health.get("stream_slots", 0) != (4 if extra else 0):
+                raise AssertionError(f"server {source} /healthz: {health}")
+        print(f"export: python -m tpu_deer_torch.server "
+              f"{' '.join([source, *extra])} (float): up in {started:.2f} s "
+              f"(warm-up included), /healthz ok, /predict of 5 rows vs the "
+              f"engine max abs err {err:.3e}{note}; exit 0 on SIGINT")
+
+
+class served:
+    """`python -m tpu_deer_torch.server <args> --port 0` in a subprocess:
+    entered, (call(path, payload=None) -> JSON, seconds to start); on exit
+    SIGINT, and a raise unless it exits 0."""
+
+    def __init__(self, args):
+        self.argv = [sys.executable, "-m", "tpu_deer_torch.server", *args,
+                     "--port", "0"]
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            self.argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stderr=subprocess.PIPE, text=True)
+        line, lines = wait_for_line(self.proc, "listening on ", 300)
+        if line is None:
+            self._stop()
+            raise AssertionError(f"{self.argv[3:]}: the server did not "
+                                 "start:\n" + "".join(lines[-20:]))
+        url = line.split("listening on ")[1].strip()
+
+        def call(path, payload=None):
+            data = None if payload is None else json.dumps(payload).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + path, data=data), timeout=120) as r:
+                return json.loads(r.read())
+
+        return call, time.perf_counter() - t0
+
+    def _stop(self):
+        self.proc.send_signal(signal.SIGINT)  # the server closes, exits 0
+        try:
+            return self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+    def __exit__(self, *exc):
+        rc = self._stop()
+        if rc != 0 and exc[0] is None:
+            raise AssertionError(f"{self.argv[3:]}: the server exited {rc}")
 
 
 def phase_recipe(torch):
@@ -2069,10 +2374,11 @@ def main() -> int:
     k2_record = phase_k2(torch, taf, k2, reports["mfcc_frames"])
     model = create_complete_deer_model(seed=SEED)
     detector = ood_detector(np.random.default_rng(SEED + 5))
-    k2_record["launches"], rec, chunks, video, text = phase_stream(
+    k2_record["launches"], rec, eager, chunks, video, text = phase_stream(
         torch, k2, model, detector)
     push_lat = phase_server(torch, model, detector)
-    phase_stream_timing(torch, rec, chunks, video, text, push_lat)
+    phase_stream_timing(torch, {"graphed": rec, "eager": eager}, chunks,
+                        video, text, push_lat)
 
     k3_records = phase_k3(torch, build, k3)
     launches, emb_record = phase_train(torch, k1, k3, emb)

@@ -171,19 +171,27 @@ def test_k2_matches_plain(device, n_fft, rows):
 
 
 def test_stream_tick_launches_k2_once(device):
-    """One push of 4 streams is one K2 launch, and matches plain=True."""
+    """One push of 4 streams is one K2 launch, eager and replayed from the
+    tick's graph, and matches plain=True."""
     model = create_complete_deer_model(seed=0, device=device)
     recs = [tstream.StreamingRecognizer(model, n_streams=4, device=device,
-                                        plain=plain) for plain in (False, True)]
+                                        plain=plain, graphs=graphs)
+            for plain, graphs in ((False, False), (True, False), (False, True))]
     chunks = np.random.default_rng(0).normal(size=(4, 4096)).astype(np.float32)
     before = k2.mfcc_frames.launches
     got = recs[0].push(chunks)
     assert k2.mfcc_frames.launches == before + 1
     ref = recs[1].push(chunks)
     assert k2.mfcc_frames.launches == before + 1
-    for key in ref:
-        np.testing.assert_allclose(got[key], ref[key], rtol=1e-4, atol=1e-5,
-                                   err_msg=key)
+    recs[2].warmup()  # K2's wrapper runs at the warm-up and the capture
+    captured = k2.mfcc_frames.launches
+    assert captured > before + 1
+    graphed = recs[2].push(chunks)  # the replay launches K2 without it
+    assert k2.mfcc_frames.launches == captured
+    for out in (got, graphed):
+        for key in ref:
+            np.testing.assert_allclose(out[key], ref[key], rtol=1e-4,
+                                       atol=1e-5, err_msg=key)
 
 
 def _k3_case(device, b, h, tq, tk, d, seed=0, kind="prefix"):

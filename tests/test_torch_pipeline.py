@@ -285,7 +285,8 @@ def test_main_full_then_evaluate_on_cpu(tmp_path):
     assert tcli.main(["--mode", "test", "--platform", "cpu"]) == 0
 
 
-@pytest.mark.parametrize("argv", [["--mode", "visualize"], ["--mode", "export"],
+@pytest.mark.parametrize("argv", [["--mode", "visualize"],
+                                  ["--mode", "export", "--ensemble", "2"],
                                   ["--raw"], ["--ensemble", "2"]])
 def test_main_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError):

@@ -159,3 +159,44 @@ def test_unported_text_backends_raise(monkeypatch):
     monkeypatch.setenv("TPU_DEER_TEXT_ENCODER_DIR", "encoder")
     with pytest.raises(NotImplementedError):
         TextFeatureExtractor()
+
+
+def test_warmup_and_graphs_on_the_cpu(rng):
+    """On the CPU the engines stay eager: warmup() runs each bucket once and
+    captures nothing, and the recognizer's warmup() leaves every stream's
+    state as it was."""
+    model = create_complete_deer_model(seed=1, device="cpu")
+    engine = InferenceEngine(model, batch_buckets=(1, 8), device="cpu")
+    assert not engine.graphs
+    feats = [rng.normal(size=(3, d)).astype(np.float32) for d in (84, 256, 768)]
+    before = engine.predict(*feats)
+    engine.warmup()
+    assert engine.bucket_graphs.capture_s == {}
+    after = engine.predict(*feats)
+    for key in before:
+        np.testing.assert_array_equal(after[key], before[key], err_msg=key)
+    rec = StreamingRecognizer(model, n_streams=2, device="cpu")
+    assert not rec.graphs
+    rec.push(rng.normal(size=(2, 4096)).astype(np.float32))
+    state = [f.clone() for f in rec.state]
+    rec.warmup()
+    assert rec.capture_s is None
+    for got, ref in zip(rec.state, state):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_stream_state_is_written_in_place(rng):
+    """A tick and a reset write the recognizer's state buffers in place (a
+    CUDA graph of the tick reads and writes those addresses)."""
+    rec = StreamingRecognizer(create_complete_deer_model(seed=1, device="cpu"),
+                              n_streams=3, device="cpu")
+    fields = list(rec.state)
+    chunks = rng.normal(size=(3, 4096)).astype(np.float32)
+    rec.push(chunks)
+    rec.push(chunks, active=np.array([True, False, True]))
+    assert all(a is b for a, b in zip(rec.state, fields))
+    assert float(rec.state.n_frames[1]) == 16.0  # idle on the second tick
+    rec.reset_streams([0])
+    assert all(a is b for a, b in zip(rec.state, fields))
+    assert all(not f[0].any() for f in rec.state)
+    assert float(rec.state.n_frames[2]) == 32.0

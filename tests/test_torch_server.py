@@ -401,5 +401,114 @@ def test_conformal_loader(tmp_path):
                                "quantiles": [1.0, float("inf"), 1.0]}))
     with pytest.raises(ValueError, match="non-finite"):
         tserver.PredictionService.load_conformal(str(bad))
-    with pytest.raises(NotImplementedError):
-        tserver.PredictionService.from_checkpoint(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tserver.PredictionService.from_checkpoint(str(tmp_path),
+                                                  ensemble_members=2)
+
+
+# ---------------------------------------------------------------------------
+# Services from checkpoints, the channel fallback, the command line
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("quantize", [False, True])
+def test_from_checkpoint_with_streams_matches_jax(quantize, tmp_path, rng):
+    """PredictionService.from_checkpoint with live sessions, float and int8,
+    against the reference's on the same weights: /predict's JSON and two
+    pushes of two sessions (default StreamingConfig: n_fft 1024, chunk
+    4096; the int8 sessions stream the dequantized weights)."""
+    from tpu_deer.train.checkpoint import CheckpointManager as JCheckpoints
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+
+    _, params, model = _models()
+    meta = {"serving_channel": "calibrated"}
+    JCheckpoints(str(tmp_path / "j")).save({"params": params, "step": 3}, 3,
+                                           metrics=meta, is_best=True)
+    CheckpointManager(str(tmp_path / "t")).save(
+        {"model": model.state_dict(), "step": 3}, 3, metrics=meta,
+        is_best=True)
+    kw = dict(stream_slots=2, quantize_weights=quantize, batch_buckets=(1, 8))
+    jsvc = jserver.PredictionService.from_checkpoint(
+        str(tmp_path / "j"), config=JConfig(**NARROW), **kw)
+    svc = tserver.PredictionService.from_checkpoint(
+        str(tmp_path / "t"), config=DEERModelConfig(**NARROW), device="cpu",
+        **kw)
+    try:
+        assert svc.engine.serving_channel == "calibrated"
+        assert svc.engine.quantized == quantize
+        a, v, t = _feats(rng, 3)
+        payload = {"audio": a.tolist(), "video": v.tolist(), "text": t.tolist()}
+        _assert_same(svc.predict_json(payload), jsvc.predict_json(payload))
+        ctx = _feats(rng, 2)[1:]
+        sids = [(s.streaming.start(video=ctx[0][i], text=ctx[1][i])
+                 for s in (jsvc, svc)) for i in range(2)]
+        sids = [tuple(pair) for pair in sids]
+        audio = rng.normal(scale=0.1, size=(2, 2, 4096)).astype(np.float32)
+        for k in range(2):
+            for i, (jsid, tsid) in enumerate(sids):
+                _assert_same(svc.streaming.push(tsid, audio[i, k]),
+                             jsvc.streaming.push(jsid, audio[i, k]),
+                             f"push {k} session {i}")
+    finally:
+        jsvc.streaming.close()
+        svc.streaming.close()
+
+
+class _ArtifactEngine:
+    """An engine over an artifact whose outputs lack some channels."""
+
+    output_dir = "/artifacts/old_export"
+
+    def __init__(self, channel, outputs):
+        self.serving_channel = channel
+        self.outputs = outputs
+
+    def predict(self, audio, video, text):
+        return {k: np.full((len(audio), 3), i + 1.0, np.float32)
+                for i, k in enumerate(self.outputs)}
+
+
+@pytest.mark.parametrize("channel, outputs, served, jax_served", [
+    # E|y - mu| comes before the raw variance when the selected channel is
+    # missing (the reference tries calibrated, then the variance).
+    ("calibrated", ("mu", "uncertainty", "expected_abs_error"), "eabs",
+     "variance"),
+    ("eabs", ("mu", "uncertainty", "calibrated_uncertainty"), "calibrated",
+     "calibrated"),
+    ("calibrated", ("mu", "uncertainty"), "variance", "variance"),
+])
+def test_predict_json_falls_back_to_the_artifacts_channels(
+        channel, outputs, served, jax_served):
+    payload = {"audio": np.zeros((2, 84)).tolist(),
+               "video": np.zeros((2, 8)).tolist(),
+               "text": np.zeros((2, 8)).tolist()}
+    engine = _ArtifactEngine(channel, outputs)
+    got = tserver.PredictionService(engine, DIMS).predict_json(payload)
+    ref = jserver.PredictionService(engine, DIMS).predict_json(payload)
+    assert (got["serving_channel"], ref["serving_channel"]) == (served,
+                                                                 jax_served)
+    key = {"calibrated": "calibrated_uncertainty", "eabs": "expected_abs_error",
+           "variance": "uncertainty"}[served]
+    assert got["deployable_uncertainty"] == got[key]
+
+
+def test_predict_json_without_uncertainty_names_the_artifact():
+    payload = {"audio": np.zeros((1, 84)).tolist(),
+               "video": np.zeros((1, 8)).tolist(),
+               "text": np.zeros((1, 8)).tolist()}
+    engine = _ArtifactEngine("calibrated", ("mu",))
+    with pytest.raises(ValueError, match="/artifacts/old_export"):
+        tserver.PredictionService(engine, DIMS).predict_json(payload)
+    with pytest.raises(KeyError):  # the reference raises a KeyError here
+        jserver.PredictionService(engine, DIMS).predict_json(payload)
+
+
+@pytest.mark.parametrize("argv, error", [
+    ([], SystemExit),
+    (["--checkpoint", "c", "--exported", "e"], SystemExit),
+    (["--exported", "e", "--ood", "det.npz"], SystemExit),
+    (["--exported", "e", "--stream_slots", "2"], SystemExit),
+    (["--exported", "e", "--platform", "tpu"], SystemExit),
+    (["--checkpoint", "c", "--ensemble", "2"], NotImplementedError),
+])
+def test_main_argument_errors(argv, error):
+    with pytest.raises(error):
+        tserver.main(argv)

@@ -33,6 +33,8 @@ follow the reference so each piece has an obvious counterpart:
   tpu_deer.serve               → tpu_deer_torch.serve (float and int8)
   tpu_deer.stream              → tpu_deer_torch.stream
   tpu_deer.server              → tpu_deer_torch.server
+  tpu_deer.export              → tpu_deer_torch.export (torch.export)
+  (jit-compiled buckets, tick) → tpu_deer_torch.graphs (CUDA graphs)
   tpu_deer.cli                 → tpu_deer_torch.cli
   (flax params ↔ state_dict)   → tpu_deer_torch.convert
 

@@ -5,6 +5,7 @@ Port of `tpu_deer/cli.py`:
     python -m tpu_deer_torch.cli --mode full --quick
     python -m tpu_deer_torch.cli --mode train --config configs/config.yaml
     python -m tpu_deer_torch.cli --mode evaluate --model_path <models dir>
+    python -m tpu_deer_torch.cli --mode export --model_path <models dir> [--int8]
     python -m tpu_deer_torch.cli --mode full --quick --platform cpu
 
 `--platform auto` (the default) and `cuda` run on the CUDA card and raise
@@ -15,10 +16,16 @@ uncertainty` is the headline recipe (batch 4,096, 100 epochs), trained with
 fused epochs, a CUDA graph of the train step on the card; `--quick` turns
 them off, as in the reference.
 
+`--mode export` writes `<output_dir>/exported_model`
+(`tpu_deer_torch.export`): the model of `--model_path`'s best checkpoint
+(its latest where there is no best) with the serving channel it recorded,
+in int8 with `--int8`, with an OOD score with `--ood_detector` (the
+evaluate stage's `results/ood_detector.npz`) at `--ood_fpr`, for the
+platform of `--platform`.
+
 Not ported yet, and raising NotImplementedError: plots (`--mode visualize`;
-`--mode full` writes `"plots": null`), `--mode export`, `--raw`,
-`--ensemble`, and the corpus loaders (a configured dataset path that exists
-on disk). The export flags (`--int8`, `--ood_detector`, `--ood_fpr`),
+`--mode full` writes `"plots": null`), `--raw`, `--ensemble`, and the
+corpus loaders (a configured dataset path that exists on disk).
 `--raw_dataset` and the unused `--results_dir` are not taken. Where the
 reference's default paths (`/path/to/...`) do not exist, the pipeline takes
 the synthetic fixture, as the reference does.
@@ -455,7 +462,51 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="'auto' and 'cuda': the CUDA card, raising without "
                         "one; 'cpu': the CPU")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="--mode export: int8 Dense kernels in the artifact, "
+                        "dequantized inside its programs")
+    p.add_argument("--ood_detector", metavar="NPZ",
+                   help="--mode export: an input_norm Mahalanobis detector "
+                        "(the evaluate stage's results/ood_detector.npz); "
+                        "the programs gain an ood_score output and the "
+                        "manifest the is_ood threshold")
+    p.add_argument("--ood_fpr", type=float, default=0.01,
+                   help="--mode export: training-quantile false-positive "
+                        "rate for the is_ood threshold")
     return p
+
+
+def export_model(args, pipeline: "MultimodalDEERPipeline",
+                 device: torch.device) -> dict:
+    """--mode export: the configured model, with `--model_path`'s weights
+    and serving channel, exported to <output_dir>/exported_model."""
+    from tpu_deer_torch.export import export_inference
+
+    pipeline.create_model()
+    serving_channel = "eabs"
+    if args.model_path:
+        from tpu_deer_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(args.model_path)
+        step = ("best" if os.path.isdir(os.path.join(args.model_path, "best"))
+                else None)
+        pipeline.model.load_state_dict(ckpt.restore_params(step))
+        serving_channel = ckpt.metadata(step)["metrics"].get(
+            "serving_channel", "eabs")
+    ood_det = None
+    if args.ood_detector:
+        from tpu_deer_torch.eval.ood import MahalanobisOOD
+
+        ood_det = MahalanobisOOD.load(args.ood_detector)
+    out_dir = os.path.join(args.output_dir, "exported_model")
+    manifest = export_inference(
+        pipeline.model, out_dir, platforms=(device.type,), quantize=args.int8,
+        ood_detector=ood_det, ood_fpr=args.ood_fpr,
+        serving_channel=serving_channel)
+    return {"export_dir": out_dir,
+            **{k: manifest[k] for k in ("buckets", "platforms", "n_params",
+                                        "quantized", "ensemble_members",
+                                        "serving_channel")}}
 
 
 def main(argv=None) -> int:
@@ -464,7 +515,6 @@ def main(argv=None) -> int:
                         format="%(levelname)s %(name)s: %(message)s")
     unported = {
         "--mode visualize (plots; ROADMAP queue 1, item 14)": args.mode == "visualize",
-        "--mode export (ROADMAP queue 1, item 9)": args.mode == "export",
         "--raw (ROADMAP queue 1, item 6)": args.raw,
         "--ensemble (ROADMAP queue 1, item 12)": args.ensemble is not None,
     }
@@ -490,6 +540,9 @@ def main(argv=None) -> int:
         experiment_name=args.experiment_name, overrides=overrides,
         quick=args.quick, resume=args.resume, recipe=args.recipe, device=device)
 
+    if args.mode == "export":
+        print(json.dumps(export_model(args, pipeline, device), indent=2))
+        return 0
     if args.mode == "full":
         summary = pipeline.run_full_pipeline()
         print(json.dumps({"best_val_ccc": summary["best_val_ccc"],

@@ -18,11 +18,19 @@ weights `torch.func.functional_call` runs the model with; the engine keeps
 no float copy of them. `from_checkpoint` loads a trainer's checkpoint and
 serves the channel its metadata selected. Ensembles are not ported yet and
 raise NotImplementedError.
+
+On the card each padded bucket runs as a CUDA graph of the whole forward
+(`graphs.GraphedCall`: the model, E|y - mu|, the int8 dequantize and the
+OOD score), the counterpart of the reference's jit-compiled bucket:
+`warmup()` captures every bucket, as the reference compiles them, and a
+bucket not yet captured is captured at its first request. All buckets share
+one memory pool. `graphs=False` runs the same forward eagerly on the card
+(to check the graphs against it); on the CPU the engine is always eager.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,41 +42,11 @@ from tpu_deer_torch.eval.ood import (
     input_norm_features_device,
     mahalanobis_score_device,
 )
+from tpu_deer_torch.graphs import BucketGraphs, bucketed_predict
 from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
 from tpu_deer_torch.ops.quantization import dequantize_tree_device, quantize_tree
 
 DEFAULT_BUCKETS = (1, 8, 64, 256)
-
-
-def bucketed_predict(
-    predict_padded: Callable[..., dict], buckets: Sequence[int],
-    audio: np.ndarray, video: np.ndarray, text: np.ndarray,
-) -> dict[str, np.ndarray]:
-    """Pad requests up to the nearest bucket, chunk requests beyond the
-    largest bucket, and unpad the outputs back to the request size.
-
-    `predict_padded(audio, video, text)` runs one padded batch and returns a
-    dict of arrays."""
-    n = len(audio)
-    max_b = buckets[-1]
-    if n > max_b:
-        parts = [
-            bucketed_predict(
-                predict_padded, buckets,
-                audio[i : i + max_b], video[i : i + max_b], text[i : i + max_b],
-            )
-            for i in range(0, n, max_b)
-        ]
-        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    b = next((bk for bk in buckets if n <= bk), max_b)
-    pad = b - n
-    if pad:
-        padz = lambda x: np.concatenate(
-            [x, np.zeros((pad,) + x.shape[1:], x.dtype)]
-        )
-        audio, video, text = padz(audio), padz(video), padz(text)
-    out = predict_padded(audio, video, text)
-    return {k: np.asarray(v)[:n] for k, v in out.items()}
 
 
 class InferenceEngine:
@@ -82,6 +60,7 @@ class InferenceEngine:
         ood_fpr: float = 0.01,
         serving_channel: str = "eabs",
         device: DeviceLike = None,
+        graphs: bool = True,
     ):
         """Serve `model` (its weights, moved to `device`: None = the CUDA
         card). serving_channel names the uncertainty deployment reads:
@@ -91,7 +70,9 @@ class InferenceEngine:
         "fused": the model's fused features); is_ood flags scores above its
         threshold at the training false-positive rate `ood_fpr`.
         quantize_weights: serve int8 Dense kernels (the module's own weights
-        are then not moved or kept)."""
+        are then not moved or kept). graphs: CUDA graphs where the device is
+        the card (the CPU is always eager); False runs eagerly on the card,
+        to check the graphs."""
         if ensemble:
             raise NotImplementedError(
                 "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
@@ -102,6 +83,7 @@ class InferenceEngine:
             )
         self.serving_channel = serving_channel
         self.device = resolve_device(device)
+        self.graphs = graphs and self.device.type == "cuda"
         self.quantized = bool(quantize_weights)
         self.quantized_weights = None
         if self.quantized:
@@ -117,6 +99,11 @@ class InferenceEngine:
         else:
             self.model = model.to(self.device).eval()
         self.buckets = sorted(batch_buckets)
+        cfg = self.model.config
+        self.bucket_graphs = BucketGraphs(
+            lambda batch: self._forward,
+            (cfg.audio_dim, cfg.video_dim, cfg.text_dim), self.device,
+            self.graphs)
         self._ood = None
         self._ood_threshold = None
         if ood_detector is not None:
@@ -173,12 +160,10 @@ class InferenceEngine:
             res["ood_score"] = mahalanobis_score_device(feats, *self._ood)
         return res
 
-    def _run(self, audio, video, text) -> dict[str, np.ndarray]:
-        as_t = lambda x: torch.from_numpy(
-            np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
-        with torch.inference_mode():
-            out = self._forward(as_t(audio), as_t(video), as_t(text))
-            return {k: v.cpu().numpy() for k, v in out.items()}
+    def warmup(self) -> None:
+        """Capture every bucket's graph on the card (before any other thread
+        uses it), or run each bucket once eagerly."""
+        self.bucket_graphs.warmup(self.buckets)
 
     def predict(self, audio: np.ndarray, video: np.ndarray,
                 text: np.ndarray) -> dict[str, np.ndarray]:
@@ -186,7 +171,8 @@ class InferenceEngine:
 
         Requests larger than the biggest bucket are processed in chunks.
         """
-        out = bucketed_predict(self._run, self.buckets, audio, video, text)
+        out = bucketed_predict(self.bucket_graphs.run, self.buckets,
+                              audio, video, text)
         if self._ood_threshold is not None:
             out["is_ood"] = out["ood_score"] > self._ood_threshold
         return out

@@ -34,12 +34,20 @@ engine pads each request to a batch bucket, so one batch in flight is the
 concurrency model. With `micro_batch=True`, concurrent requests are
 coalesced by a dispatcher thread into waves of up to `max_batch` rows.
 
-Building a service from a checkpoint or an exported artifact, and the
-command line, are not ported yet.
+A service is built from a trainer's checkpoint
+(`PredictionService.from_checkpoint`, with live sessions where
+`stream_slots` is given) or from an exported artifact (`from_exported`,
+`tpu_deer_torch.export`). On the card every serving bucket and the stream
+tick replay CUDA graphs, captured at start-up unless `--no_warmup`:
+
+    python -m tpu_deer_torch.server --checkpoint <models dir> [--stream_slots 64]
+    python -m tpu_deer_torch.server --exported <export dir>
+    python -m tpu_deer_torch.server --exported <export dir> --platform cpu
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import queue
@@ -272,8 +280,9 @@ class StreamingSessionService:
                  ood_detector=None, ood_fpr: float = 0.01,
                  serving_channel: str = "eabs", device: DeviceLike = None):
         """model: a CompleteDEERModel with its weights, served on `device`
-        (None = the CUDA card). serving_channel is mirrored into every tick
-        response, as /predict does."""
+        (None = the CUDA card; the tick replays a CUDA graph there).
+        serving_channel is mirrored into every tick response, as /predict
+        does."""
         self.serving_channel = serving_channel
         self.cfg = stream_cfg or StreamingConfig()
         self.rec = StreamingRecognizer(
@@ -283,13 +292,10 @@ class StreamingSessionService:
         self.push_timeout_s = push_timeout_s
         mcfg = model.config
         if warmup:
-            # Build the kernel (nvcc at first use) and load the GEMM
-            # libraries now, so the first client push does not pay for
-            # them. An all-inactive push leaves every stream untouched.
-            self.rec.push(
-                np.zeros((n_streams, self.cfg.chunk_samples), np.float32),
-                active=np.zeros(n_streams, bool),
-            )
+            # Build the kernel (nvcc at first use) and capture the tick's
+            # graph before the dispatcher thread starts, as the reference
+            # compiles its tick here.
+            self.rec.warmup()
         self.n_streams = n_streams
         self.chunk_samples = self.cfg.chunk_samples
         self._video = np.zeros((n_streams, mcfg.video_dim), np.float32)
@@ -527,13 +533,62 @@ class PredictionService:
             "quantiles": q,
         }
 
-    @classmethod
-    def from_checkpoint(cls, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet")
+    _SERVICE_KW = ("micro_batch", "max_batch", "max_wait_ms",
+                   "pipeline_depth")
 
     @classmethod
-    def from_exported(cls, *args, **kwargs):
-        raise NotImplementedError("exported artifacts are not ported yet")
+    def from_checkpoint(cls, checkpoint_dir: str, config=None,
+                        stream_slots: int = 0, stream_warmup: bool = True,
+                        **kwargs) -> "PredictionService":
+        """A service over `InferenceEngine.from_checkpoint(checkpoint_dir,
+        config, **kwargs)` (device, graphs, quantize_weights, ood_detector,
+        ood_fpr, ...; the micro-batching options go to the service). With
+        `stream_slots`, live sessions on the same weights: an int8 engine
+        keeps no float module, so the sessions get one with the dequantized
+        weights, as the reference streams `dequantize_tree`'s."""
+        from tpu_deer_torch.models.deer_model import (
+            CompleteDEERModel,
+            DEERModelConfig,
+        )
+        from tpu_deer_torch.ops.quantization import dequantize_tree
+        from tpu_deer_torch.serve import InferenceEngine
+
+        svc_kw = {k: kwargs.pop(k) for k in cls._SERVICE_KW if k in kwargs}
+        config = config or DEERModelConfig()
+        engine = InferenceEngine.from_checkpoint(checkpoint_dir, config=config,
+                                                 **kwargs)
+        streaming = None
+        if stream_slots:
+            if config.audio_dim != 84:
+                raise ValueError(
+                    "streaming sessions need the 84-d audio feature model "
+                    f"(audio_dim={config.audio_dim})")
+            model = engine.model
+            if engine.quantized:
+                model = CompleteDEERModel(config)
+                model.load_state_dict(dequantize_tree(*engine.quantized_weights))
+            streaming = StreamingSessionService(
+                model, n_streams=stream_slots, warmup=stream_warmup,
+                ood_detector=kwargs.get("ood_detector"),
+                ood_fpr=kwargs.get("ood_fpr", 0.01),
+                serving_channel=engine.serving_channel, device=engine.device)
+        return cls(engine, (config.audio_dim, config.video_dim,
+                            config.text_dim), streaming=streaming, **svc_kw)
+
+    @classmethod
+    def from_exported(cls, export_dir: str, device: DeviceLike = None,
+                      **kwargs) -> "PredictionService":
+        """A service over `export.load_exported(export_dir)`. An artifact
+        holds no model to stream with, so `stream_slots` raises."""
+        from tpu_deer_torch.export import load_exported
+
+        if kwargs.pop("stream_slots", 0):
+            raise ValueError("live sessions need the model: serve a "
+                             "checkpoint (from_checkpoint) to stream")
+        engine = load_exported(export_dir, device=device)
+        c = engine.manifest["config"]
+        return cls(engine, (c["audio_dim"], c["video_dim"], c["text_dim"]),
+                   **kwargs)
 
     def predict_json(self, payload: dict) -> dict:
         arrays = []
@@ -569,13 +624,26 @@ class PredictionService:
         }
         # Which channel deployment should read; "deployable_uncertainty"
         # aliases it so clients need no mapping logic.
-        channel = self.engine.serving_channel
+        channel, alias = self._deployable_channel(resp)
         resp["serving_channel"] = channel
-        resp["deployable_uncertainty"] = resp[
-            "calibrated_uncertainty" if channel == "calibrated"
-            else "expected_abs_error"
-        ]
+        resp["deployable_uncertainty"] = resp[alias]
         return self.attach_intervals(resp)
+
+    def _deployable_channel(self, resp: dict) -> tuple[str, str]:
+        """(serving_channel, the response key it reads): the engine's
+        channel, or, for an artifact whose outputs lack it, the best one
+        it carries (calibrated, then E|y - mu|, then the raw variance),
+        reported as what it is. An artifact with no uncertainty output at
+        all raises a ValueError naming it."""
+        keys = {"calibrated": "calibrated_uncertainty",
+                "eabs": "expected_abs_error", "variance": "uncertainty"}
+        channel = getattr(self.engine, "serving_channel", "eabs")
+        for name in (channel, *keys):
+            if keys[name] in resp:
+                return name, keys[name]
+        source = getattr(self.engine, "output_dir", type(self.engine).__name__)
+        raise ValueError(f"{source}: the served artifact has no uncertainty "
+                         f"output (outputs: {sorted(resp)})")
 
     def attach_intervals(self, resp: dict) -> dict:
         """Add conformal interval_lower/upper to a response carrying
@@ -723,3 +791,104 @@ def serve(service: PredictionService, host: str = "127.0.0.1",
     logger.info("serving on http://%s:%d (POST /predict, GET /healthz)",
                 host, port)
     return server
+
+
+PLATFORMS = {"auto": None, "cuda": "cuda", "cpu": "cpu"}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Serve the port's engines over "
+                                            "HTTP (POST /predict, GET /healthz)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", help="CheckpointManager directory")
+    src.add_argument("--exported",
+                     help="tpu_deer_torch.export artifact directory")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8571)
+    p.add_argument("--platform", choices=sorted(PLATFORMS), default="auto",
+                   help="'auto' and 'cuda': the CUDA card, raising without "
+                        "one; 'cpu': the CPU")
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip capturing the batch buckets' and the stream "
+                        "tick's CUDA graphs at startup (each is then "
+                        "captured at its first request)")
+    p.add_argument("--micro_batch", action="store_true",
+                   help="coalesce concurrent requests into one dispatch")
+    p.add_argument("--stream_slots", type=int, default=0,
+                   help="enable /stream/* live-session routes with this "
+                        "many concurrent slots (checkpoint source only)")
+    p.add_argument("--max_batch", type=int, default=256,
+                   help="micro-batching: max coalesced rows per dispatch")
+    p.add_argument("--max_wait_ms", type=float, default=2.0,
+                   help="micro-batching: max straggler wait per dispatch "
+                        "(auto-shrinks to 0 under sustained load)")
+    p.add_argument("--pipeline_depth", type=int, default=2,
+                   help="micro-batching: dispatch waves in flight at once")
+    p.add_argument("--conformal",
+                   help="conformal quantile JSON (the CLI evaluate stage's "
+                        "results/conformal.json); /predict responses gain "
+                        "interval_lower/interval_upper with 1-alpha coverage")
+    p.add_argument("--ensemble", type=int, default=1, metavar="K",
+                   help="a stacked K-member checkpoint (not ported yet)")
+    p.add_argument("--ood",
+                   help="Mahalanobis OOD detector .npz (the CLI evaluate "
+                        "stage's results/ood_detector.npz); /predict "
+                        "responses gain ood_score + is_ood (checkpoint "
+                        "source only)")
+    p.add_argument("--ood_fpr", type=float, default=0.01,
+                   help="training-quantile false-positive rate for is_ood")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_arg_parser()
+    args = p.parse_args(argv)
+    if args.ensemble > 1:
+        raise NotImplementedError(
+            "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
+    if args.ood and not args.checkpoint:
+        p.error("--ood requires --checkpoint (an exported program is fixed; "
+                "re-export with the detector to serve OOD scores)")
+    if args.stream_slots and not args.checkpoint:
+        p.error("--stream_slots requires --checkpoint (needs the model)")
+    logging.basicConfig(level=logging.INFO)
+
+    mb = dict(micro_batch=args.micro_batch, max_batch=args.max_batch,
+              max_wait_ms=args.max_wait_ms,
+              pipeline_depth=args.pipeline_depth)
+    device = PLATFORMS[args.platform]
+    if args.checkpoint:
+        ood_kw = {}
+        if args.ood:
+            from tpu_deer_torch.eval.ood import MahalanobisOOD
+
+            ood_kw = dict(ood_detector=MahalanobisOOD.load(args.ood),
+                          ood_fpr=args.ood_fpr)
+        service = PredictionService.from_checkpoint(
+            args.checkpoint, stream_slots=args.stream_slots,
+            stream_warmup=not args.no_warmup, device=device, **mb, **ood_kw)
+    else:
+        service = PredictionService.from_exported(args.exported,
+                                                  device=device, **mb)
+    if not args.no_warmup:
+        service.engine.warmup()
+    if args.conformal:
+        service.conformal = PredictionService.load_conformal(args.conformal)
+
+    server = serve(service, args.host, args.port)
+    logger.info("listening on http://%s:%d", *server.server_address[:2])
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        if service.batcher is not None:
+            service.batcher.close()
+        if service.streaming is not None:
+            service.streaming.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,6 +17,11 @@ takes one [S, chunk] batch and returns S emotion estimates:
     overlap) and the last `delta_width - 1` MFCC / Δ frames (delta context).
   * **A leading stream axis.** Every field of `StreamState` is a tensor
     [S, ...]; the update is written over that axis.
+  * **One CUDA graph per tick** on the card, the counterpart of the
+    reference's jit-compiled tick: the update, the per-slot select, the
+    features, the model, E|y - mu| and the OOD score, K2 inside, replayed
+    over static inputs (chunks, video, text, active) and a static state
+    that the tick writes in place (`graphs.GraphedCall`).
 
 Streaming semantics vs the offline extractor: a live stream has no future
 samples, so it starts from silence (a zero carry) and does not emit the
@@ -29,6 +34,7 @@ extractor's on the same audio (tests/test_torch_stream.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +46,7 @@ from tpu_deer_torch.eval.ood import (
     input_norm_features_device,
     mahalanobis_score_device,
 )
+from tpu_deer_torch.graphs import GraphedCall
 from tpu_deer_torch.ops import dsp
 from tpu_deer_torch.ops.audio_frontend import (
     FEATURE_DIM,
@@ -143,6 +150,14 @@ def init_stream_state(cfg: StreamingConfig, n_streams: int = 1,
     )
 
 
+@functools.lru_cache(maxsize=8)
+def _delta_kernel(width: int, device: torch.device) -> torch.Tensor:
+    """The regression-delta weights on `device`, uploaded once (a copy from
+    the host is not allowed while a CUDA graph is being captured)."""
+    return torch.as_tensor(dsp.delta_kernel(width), dtype=torch.float32,
+                           device=device)
+
+
 def _valid_deltas(tail: torch.Tensor, new: torch.Tensor, width: int):
     """Un-padded regression deltas over [tail; new] along the frame axis.
 
@@ -152,8 +167,7 @@ def _valid_deltas(tail: torch.Tensor, new: torch.Tensor, width: int):
     edges.
     """
     x = torch.cat([tail, new], dim=-2)
-    kernel = torch.as_tensor(dsp.delta_kernel(width), dtype=x.dtype,
-                             device=x.device)
+    kernel = _delta_kernel(width, x.device).to(x.dtype)
     n_out = new.shape[-2]
     windows = torch.stack([x[..., i:i + n_out, :] for i in range(width)])
     return torch.einsum("w,w...->...", kernel, windows)
@@ -282,6 +296,10 @@ class StreamingRecognizer:
 
     Video/text context features (for A+V+T prediction) are supplied per
     push and may update at any cadence; pass zeros for audio-only streams.
+
+    The state lives in fixed device buffers that each tick writes in place
+    (`self.state` is never rebound), so a CUDA graph of the tick stays
+    valid.
     """
 
     def __init__(
@@ -293,6 +311,7 @@ class StreamingRecognizer:
         ood_fpr: float = 0.01,
         device: DeviceLike = None,
         plain: bool = False,
+        graphs: bool = True,
     ):
         """model: a CompleteDEERModel with its weights, moved to `device`
         (None = the CUDA card). ood_detector: a fitted MahalanobisOOD in
@@ -300,8 +319,12 @@ class StreamingRecognizer:
         model sees; each push then gains "ood_score", and `ood_threshold`
         is its cutoff at the training false-positive rate `ood_fpr`.
         plain=True runs K2's plain twin in place of the kernel (to check
-        the kernel on the card)."""
+        the kernel on the card). graphs: a CUDA graph of the tick where the
+        device is the card (captured at `warmup()` or the first push; the
+        CPU is always eager); False runs eagerly on the card, to check the
+        graph."""
         self.device = resolve_device(device)
+        self.graphs = graphs and self.device.type == "cuda"
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.n_streams = n_streams
@@ -318,25 +341,73 @@ class StreamingRecognizer:
                               for a in ood_detector.device_arrays)
             self.ood_threshold = float(ood_detector.threshold(ood_fpr))
         self.state = init_stream_state(cfg, n_streams, self.device)
+        mcfg = model.config
+        self._specs = [((n_streams, cfg.chunk_samples), torch.float32),
+                       ((n_streams, mcfg.video_dim), torch.float32),
+                       ((n_streams, mcfg.text_dim), torch.float32),
+                       ((n_streams,), torch.bool)]
+        self._graph: Optional[GraphedCall] = None
 
-    def _as_tensor(self, x, dtype=torch.float32) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device, dtype)
+    def _tick(self, chunks, video, text, active) -> dict[str, torch.Tensor]:
+        """One tick over device tensors; writes the state in place. With
+        every slot inactive the state is left as it was."""
+        new_state, _ = streaming_update(self.state, chunks, self.cfg,
+                                        self.plain)
+        # Inactive slots pass through untouched (their chunk is ignored):
+        # sessions advance independently though every tick carries all S.
+        for field, new in zip(self.state, new_state):
+            pick = active.reshape((-1,) + (1,) * (field.dim() - 1))
+            field.copy_(torch.where(pick, new, field))
+        feats = _features_from_state(self.state)
+        out = self.model(feats, video, text)
+        res = {
+            "features": feats,
+            "mu": out["mu_all"],
+            "uncertainty": out["uncertainty_all"],
+            "calibrated_uncertainty": out["calibrated_uncertainty"],
+            "expected_abs_error": torch.cat(
+                [nig_expected_abs_error(out[f"{n}_params"])
+                 for n in self.model.config.dim_names], dim=-1),
+        }
+        if self._ood is not None:
+            res["ood_score"] = mahalanobis_score_device(
+                input_norm_features_device(feats, video, text), *self._ood)
+        return res
 
-    def _select(self, mask: torch.Tensor, new: StreamState) -> StreamState:
-        """Per stream: the `new` field where mask, else the current one."""
-        pick = lambda old, nw: torch.where(
-            mask.reshape((-1,) + (1,) * (old.dim() - 1)), nw, old)
-        return StreamState(*(pick(o, n) for o, n in zip(self.state, new)))
+    def warmup(self) -> None:
+        """Ready the tick before serving, as the reference compiles its tick:
+        capture the tick's graph (before other threads use the card), or,
+        eager, run one all-inactive tick (that builds the kernel and loads
+        the libraries). Either leaves every stream's state as it was."""
+        if self.graphs:
+            self._capture("global")
+        else:
+            S = self.n_streams
+            self.push(np.zeros((S, self.cfg.chunk_samples), np.float32),
+                      active=np.zeros(S, bool))
+
+    def _capture(self, capture_error_mode: str) -> None:
+        """Capture the tick's graph where it is not captured yet. The
+        warm-up runs before the capture leave every stream's state as it
+        was."""
+        if self._graph is None:
+            self._graph = GraphedCall(self._tick, self._specs, self.device,
+                                      capture_error_mode=capture_error_mode)
+
+    @property
+    def capture_s(self) -> Optional[float]:
+        return None if self._graph is None else self._graph.capture_s
 
     def reset_streams(self, stream_ids) -> None:
-        """End the given sessions; their slots restart from silence."""
+        """End the given sessions; their slots restart from silence (a
+        fresh state is all zeros)."""
         ids = np.asarray(stream_ids, dtype=np.int64)
         if ids.size == 0:
             return
-        mask = np.zeros(self.n_streams, bool)
-        mask[ids] = True
-        fresh = init_stream_state(self.cfg, self.n_streams, self.device)
-        self.state = self._select(self._as_tensor(mask, torch.bool), fresh)
+        idx = torch.from_numpy(ids).to(self.device)
+        with torch.inference_mode():
+            for field in self.state:
+                field.index_fill_(0, idx, 0.0)
 
     def push(
         self,
@@ -366,27 +437,11 @@ class StreamingRecognizer:
             text = np.zeros((S, mcfg.text_dim), np.float32)
         if active is None:
             active = np.ones(S, bool)
+        args = (chunks, video, text, active)
+        if self.graphs:
+            self._capture("thread_local")
+            return self._graph(*args)
         with torch.inference_mode():
-            video_t, text_t = self._as_tensor(video), self._as_tensor(text)
-            new_state, _ = streaming_update(
-                self.state, self._as_tensor(chunks), self.cfg, self.plain)
-            # Inactive slots pass through untouched (their chunk is ignored):
-            # sessions advance independently though every tick carries all S.
-            self.state = self._select(self._as_tensor(active, torch.bool),
-                                      new_state)
-            feats = _features_from_state(self.state)
-            out = self.model(feats, video_t, text_t)
-            res = {
-                "features": feats,
-                "mu": out["mu_all"],
-                "uncertainty": out["uncertainty_all"],
-                "calibrated_uncertainty": out["calibrated_uncertainty"],
-                "expected_abs_error": torch.cat(
-                    [nig_expected_abs_error(out[f"{n}_params"])
-                     for n in mcfg.dim_names], dim=-1),
-            }
-            if self._ood is not None:
-                res["ood_score"] = mahalanobis_score_device(
-                    input_norm_features_device(feats, video_t, text_t),
-                    *self._ood)
-            return {k: v.cpu().numpy() for k, v in res.items()}
+            out = self._tick(*(torch.as_tensor(np.asarray(a)).to(
+                self.device, dtype) for a, (_, dtype) in zip(args, self._specs)))
+            return {k: v.cpu().numpy() for k, v in out.items()}
