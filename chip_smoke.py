@@ -114,8 +114,24 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               count of tensors differing in any bit); the device's busy
               share over an epoch of replays and over an eager step; (e)
               the headline experiment's twin (`tpu_deer_torch.experiments
-              .synthetic_headline`) at 131,072 rows for 10 epochs, its JSON
-              and Markdown written and its metrics finite.
+              .synthetic_headline`, bf16 on the card) at 131,072 rows for
+              10 epochs, its JSON and Markdown written and its metrics
+              finite;
+ 11. bench  — the port's bench at full size, `tpu_deer_torch.bench.main()`
+              (the flagship in bf16: serving at batch 1 and 256, int8,
+              4,096 × 512 graphed forwards, 1,024 utterances of 3 s through
+              K1, 256 streams with K2 in the tick's graph, 100 graphed train
+              steps at batch 16,384, MFU and roofline), its stderr lines
+              and JSON line printed with the phase's wall, then the same
+              sections in float32 for comparison; raises unless
+              the dtype is bfloat16 and the value finite, K1 launched in
+              the front-end section and K2 captured in the stream
+              section's tick graph (the counts zeroed just before), and the
+              bf16 forward on the card is within BF16_TOL of the CPU's bf16
+              forward (256 rows); then the outputs that cuBLAS's bf16
+              reduced-precision reductions move, a graphed forward's time
+              at 4,096 rows with them off and on, and bf16 predict at 1 and
+              256 rows under the profiler.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -208,6 +224,12 @@ COMPARE_STEPS, GRAPH_TOL = 8, (1e-5, 1e-5)
 # (validation every 10 epochs: one validation).
 TWIN_ROWS, TWIN_EPOCHS = 131072, 10
 PREDICT_SIZES = (1, 8, 64, 256, 300)  # every bucket, and a chunked request
+# The bf16 forward on the card against the CPU's (tests/test_torch_bf16_cuda.py):
+# |card − cpu| within these fractions of the CPU's own bf16-vs-float32 gap
+# on the same inputs (max, mean); BF16_ROWS standard-normal rows, seed 0.
+BF16_TOL = (0.5, 0.25)
+BF16_ROWS = 256
+BF16_TIMED_ROWS = 4096  # the bench's forward batch
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -2338,6 +2360,163 @@ def phase_recipe(torch):
               f"platform {payload['platform']!r}")
 
 
+class _Tee:
+    """A text stream that writes to several (the bench's stderr goes to the
+    terminal as it runs and is kept for the checks)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def bf16_vs_cpu(torch, state, rows):
+    """The flagship's bf16 forward on the card (cuBLAS's bf16
+    reduced-precision reductions off, then on) against the same forward on
+    the CPU, held to BF16_TOL of the CPU's bf16-vs-float32 gap; returns
+    {output: (max err, max gap, mean err, mean gap)} with the reductions
+    off and the count of outputs that the flag moves."""
+    from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
+
+    rng = np.random.default_rng(SEED)
+    inputs = [rng.standard_normal((rows, d)).astype(np.float32)
+              for d in (84, 256, 768)]
+    keys = ("mu_all", "uncertainty_all", "calibrated_uncertainty")
+    matmul = torch.backends.cuda.matmul
+
+    def forward(dtype, device, reduced=False):
+        model = CompleteDEERModel(DEERModelConfig(compute_dtype=dtype))
+        model.load_state_dict(state)
+        model.to(device).eval()
+        saved = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            with torch.no_grad():
+                out = model(*(torch.from_numpy(x).to(device) for x in inputs))
+                return {k: out[k].float().cpu().numpy() for k in keys}
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = saved
+
+    cpu, cpu_f32 = forward("bfloat16", "cpu"), forward("float32", "cpu")
+    card, card_reduced = forward("bfloat16", DEVICE), forward(
+        "bfloat16", DEVICE, reduced=True)
+    stats = {}
+    for key in keys:
+        gap = np.abs(cpu[key] - cpu_f32[key])
+        err = np.abs(card[key] - cpu[key])
+        stats[key] = (float(err.max()), float(gap.max()), float(err.mean()),
+                      float(gap.mean()))
+        if err.max() > BF16_TOL[0] * gap.max() \
+                or err.mean() > BF16_TOL[1] * gap.mean():
+            raise AssertionError(
+                f"bf16 {key}: card vs CPU max {err.max():.3g} / mean "
+                f"{err.mean():.3g} against the CPU's bf16-vs-float32 gap "
+                f"max {gap.max():.3g} / mean {gap.mean():.3g} (allowed "
+                f"{BF16_TOL})")
+    moved = sum(int((card[k] != card_reduced[k]).sum()) for k in keys)
+    return stats, moved
+
+
+def phase_bench(torch, k1, k2):
+    """The port's bench at full size (`tpu_deer_torch.bench.main()`, bf16 on
+    the card): its stderr lines and JSON line printed; raises unless the
+    dtype is bfloat16, the value finite, K1 launched in the front-end
+    section, K2 captured in the stream section's tick graph, and the bf16
+    forward on the card within BF16_TOL of the CPU's. Then the bf16
+    reduced-precision reductions (outputs they move, a graphed forward's
+    time at the bench's batch with them off and on) and bf16 predict's
+    device time at 1 and 256 rows."""
+    import contextlib
+    import io
+
+    from tpu_deer_torch import bench
+    from tpu_deer_torch.graphs import WARMUP_RUNS, GraphedCall
+    from tpu_deer_torch.models.deer_model import (
+        DEERModelConfig,
+        create_complete_deer_model,
+    )
+    from tpu_deer_torch.serve import InferenceEngine
+
+    t0 = time.perf_counter()
+    err, out = io.StringIO(), io.StringIO()
+    k1.mfcc_signal.launches = k2.mfcc_frames.launches = 0
+    with contextlib.redirect_stderr(_Tee(sys.stderr, err)), \
+            contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    k1_n, k2_n = k1.mfcc_signal.launches, k2.mfcc_frames.launches
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith("# ") and not ln.startswith("# [")]
+    for line in lines:
+        print(f"bench: {line}")
+    record_line = out.getvalue().strip().splitlines()[-1]
+    print(f"bench: {record_line}")
+    record = json.loads(record_line)
+    if rc != 0 or record["metric"] != "p50_per_sample_latency_ms" \
+            or not math.isfinite(record["value"]) \
+            or "dtype=bfloat16" not in lines[0]:
+        raise AssertionError(f"bench: rc {rc}, record {record}, {lines[:1]}")
+    # K1 runs only in the front-end section; K2 only in the stream section,
+    # where the wrapper counts the tick's warm-up runs and its capture and
+    # no replay (an eager tick would count once a push).
+    if k1_n < 1 or k2_n != WARMUP_RUNS + 1:
+        raise AssertionError(f"bench: K1 launched {k1_n} times in the "
+                             f"front-end section, K2 {k2_n} (want "
+                             f"{WARMUP_RUNS + 1}: the tick's capture)")
+    print(f"bench: wall {wall:.1f} s; K1 wrapper launches {k1_n} (front-end "
+          f"section), K2 {k2_n} (the stream tick's warm-up runs and capture; "
+          f"its replays launch it inside the graph)")
+    t1 = time.perf_counter()
+    f32 = bench.run(compute_dtype="float32")  # the same sections in float32
+    for line in f32.lines:
+        print(f"bench float32: {line}")
+    print(f"bench float32: {json.dumps(f32.record)}; wall "
+          f"{time.perf_counter() - t1:.1f} s")
+
+    state = create_complete_deer_model(seed=SEED, device="cpu").state_dict()
+    stats, moved = bf16_vs_cpu(torch, state, BF16_ROWS)
+    for key, (mx, gmx, mn, gmn) in stats.items():
+        print(f"bench: bf16 {key} card vs CPU at {BF16_ROWS} rows: max "
+              f"{mx:.3e} (CPU's bf16-vs-float32 gap {gmx:.3e}), mean {mn:.3e} "
+              f"(gap {gmn:.3e}); within {BF16_TOL}")
+    model = create_complete_deer_model(DEERModelConfig(compute_dtype="bfloat16"),
+                                       seed=SEED, device=DEVICE)
+    specs = [((BF16_TIMED_ROWS, d), torch.float32) for d in (84, 256, 768)]
+    matmul = torch.backends.cuda.matmul
+    times = {}
+    for reduced in (False, True, True, False):
+        # A graph of the forward (captured under the setting, which picks
+        # cuBLAS's kernels), so the time is the device's, not the ~400
+        # eager launches'.
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        forward = GraphedCall(lambda a, v, t: {"mu": model(a, v, t)["mu_all"]},
+                              specs, torch.device(DEVICE))
+        times.setdefault(reduced, []).append(time_ms(forward.graph.replay))
+    matmul.allow_bf16_reduced_precision_reduction = False
+    print(f"bench: bf16 reduced-precision reductions move {moved} of "
+          f"{3 * 3 * BF16_ROWS} outputs at {BF16_ROWS} rows; a graphed forward "
+          f"at {BF16_TIMED_ROWS} rows "
+          f"{' / '.join(f'{t:.4f}' for t in times[False])} ms off, "
+          f"{' / '.join(f'{t:.4f}' for t in times[True])} ms on (CUDA events "
+          f"around a replay, turns off-on-on-off; the bench runs them off)")
+    engine = InferenceEngine(model)
+    engine.warmup()
+    rng = np.random.default_rng(SEED + 11)
+    for n in (1, 256):
+        feats = [rng.normal(size=(n, d)).astype(np.float32)
+                 for d in (84, 256, 768)]
+        profile_window(torch, f"predict {n} bf16 graphed",
+                       lambda: engine.predict(*feats), windows=3)
+    print(f"bench: phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2390,6 +2569,7 @@ def main() -> int:
     k4_record["launches"], err = phase_main(torch, k4)
     k4_record["max_abs_err"] = max(k4_record["max_abs_err"], err)
     phase_recipe(torch)
+    phase_bench(torch, k1, k2)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

@@ -118,8 +118,10 @@ def test_nig_functions_match_jax(rng):
 
 @pytest.mark.parametrize("kw", [dict(fusion_type="moe"),
                                 dict(stacked_compute=True),
-                                dict(compute_dtype="bfloat16")])
+                                dict(fusion_type="attention")])
 def test_unported_config_raises(kw):
+    """compute_dtype="bfloat16" is ported: tests/test_torch_bf16.py holds
+    it against the reference."""
     with pytest.raises(NotImplementedError):
         CompleteDEERModel(DEERModelConfig(**kw))
 

@@ -15,9 +15,12 @@ fused epochs (a CUDA graph of the train step on the card), validation every
 MAE, RMSE, ECE of each uncertainty channel, a post-hoc scale fit on
 validation, the uncertainty-error correlation and AUSE, bootstrap CIs).
 
+The model computes in bfloat16 on the card, as the reference's does on its
+TPU, and in float32 on the CPU (parameters, NIG math and calibration stay
+float32), with TF32 and cuBLAS's bf16 reduced-precision reductions off.
+
 Differences from the reference: `--platform` picks the card (`cuda`, the
-default; it raises without one) or the CPU; the model computes in float32
-with TF32 off (the reference ran bfloat16 on its TPU); results go to
+default; it raises without one) or the CPU; results go to
 `results_torch/RESULTS_synthetic_h100` (`_seed<k>` added for a non-zero
 seed), and the payload's `platform` names the card and its power limit.
 `--figures` and `--figures_from` raise: the plots are not ported yet
@@ -107,6 +110,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.platform)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     platform = card_name(device)
 
     splits = make_synthetic_splits(SyntheticConfig(
@@ -114,8 +118,10 @@ def main(argv=None) -> int:
         seed=42 + args.seed))
     train_ds, val_ds, test_ds = (ArrayDataset(splits[s], "synthetic")
                                  for s in ("train", "val", "test"))
-    model = create_complete_deer_model(DEERModelConfig(dropout=args.dropout),
-                                       seed=args.seed, device=device)
+    compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
+    model = create_complete_deer_model(
+        DEERModelConfig(dropout=args.dropout, compute_dtype=compute_dtype),
+        seed=args.seed, device=device)
     n_params = count_parameters(model)
     trainer = DEERTrainer(
         model,
@@ -183,8 +189,8 @@ def main(argv=None) -> int:
     md = [
         "# Synthetic headline run — computed results",
         "",
-        f"- platform: **{platform}**, params: {n_params:,} "
-        "(reference model: 3,918,324)",
+        f"- platform: **{platform}**, compute dtype {compute_dtype}, params: "
+        f"{n_params:,} (reference model: 3,918,324)",
         f"- train: {args.n_train} samples, {results['epochs_run']} epochs, "
         f"{train_time:.1f}s wall",
         "",

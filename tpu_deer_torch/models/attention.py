@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from tpu_deer_torch.kernels.flash_attention import flash_attention
-from tpu_deer_torch.models.layers import MLP
+from tpu_deer_torch.models.layers import MLP, dense, sigmoid, softmax
 
 # Key lengths at which use_flash="auto" picks the flash kernels, kept equal
 # to the reference's so that both packages dispatch alike. The flash branch
@@ -44,10 +44,14 @@ class MultiHeadAttention(nn.Module):
 
     The flash branch (`resolve_use_flash`) hands the heads to kernels K3a-c
     with the key mask as the reference builds it, and skips attention-prob
-    dropout, as the reference's flash branch does."""
+    dropout, as the reference's flash branch does. In `dtype` the
+    projections, scores, softmax and attn·v run in it (the scale rounded to
+    it, as `jnp.sqrt` of a head dim in that dtype); the flash branch casts
+    the heads to float32 for K3 and its output back."""
 
     def __init__(self, feature_dim: int, num_heads: int = 8,
-                 dropout: float = 0.1, use_flash: Union[bool, str] = "auto"):
+                 dropout: float = 0.1, use_flash: Union[bool, str] = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if feature_dim % num_heads != 0:
             raise ValueError(f"feature_dim {feature_dim} is not divisible by "
@@ -60,6 +64,10 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(feature_dim, feature_dim)
         self.out_proj = nn.Linear(feature_dim, feature_dim)
         self.dropout = nn.Dropout(dropout)
+        self.dtype = dtype
+        # sqrt(head_dim) rounded to the compute dtype.
+        self.scale = float(torch.tensor(math.sqrt(feature_dim // num_heads),
+                                        dtype=dtype, device="cpu"))
 
     def forward(self, query, key, value,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -70,31 +78,33 @@ class MultiHeadAttention(nn.Module):
         def split_heads(x, t):
             return x.reshape(b, t, self.num_heads, head_dim).transpose(1, 2)
 
-        q = split_heads(self.q_proj(query), tq)
-        k = split_heads(self.k_proj(key), tk)
-        v = split_heads(self.v_proj(value), tk)
+        dt = self.dtype
+        q = split_heads(dense(self.q_proj, query, dt), tq)
+        k = split_heads(dense(self.k_proj, key, dt), tk)
+        v = split_heads(dense(self.v_proj, value, dt), tk)
         if resolve_use_flash(self.use_flash, tk, training=self.training):
             kv_mask = None
             if mask is not None:
                 kv_mask = mask.reshape(b, -1, tk)[:, -1, :].to(torch.float32)
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), kv_mask)
+            f32 = lambda x: x.to(torch.float32).contiguous()
+            out = flash_attention(f32(q), f32(k), f32(v), kv_mask).to(dt)
         else:
-            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.scale
             if mask is not None:
                 scores = torch.where(mask, scores,
                                      torch.finfo(scores.dtype).min)
-            attn = self.dropout(torch.softmax(scores, dim=-1))
+            attn = self.dropout(softmax(scores, dim=-1))
             out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         out = out.transpose(1, 2).reshape(b, tq, self.feature_dim)
-        return self.out_proj(out)
+        return dense(self.out_proj, out, dt)
 
 
 class UncertaintyEstimator(nn.Module):
     """Per-modality scalar uncertainty in [0, 1]: Linear → ReLU → Dropout →
-    Linear → ReLU → Linear → sigmoid."""
+    Linear → ReLU → Linear → sigmoid, in `dtype`."""
 
-    def __init__(self, feature_dim: int, dropout: float = 0.2):
+    def __init__(self, feature_dim: int, dropout: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList([
             nn.Linear(feature_dim, feature_dim // 2),
@@ -102,11 +112,13 @@ class UncertaintyEstimator(nn.Module):
             nn.Linear(feature_dim // 4, 1),
         ])
         self.dropout = nn.Dropout(dropout)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.dropout(torch.relu(self.layers[0](x)))
-        h = torch.relu(self.layers[1](h))
-        return torch.sigmoid(self.layers[2](h))
+        dt = self.dtype
+        h = self.dropout(torch.relu(dense(self.layers[0], x, dt)))
+        h = torch.relu(dense(self.layers[1], h, dt))
+        return sigmoid(dense(self.layers[2], h, dt))
 
 
 class UncertaintyAwareAttention(nn.Module):
@@ -119,16 +131,21 @@ class UncertaintyAwareAttention(nn.Module):
                                              cross(t, t, t))
       w       = softmax(WeightNet(cat[self_a, self_v, self_t, u_a, u_v, u_t]))
       out_m   = w_m * self_m + (1 - u_m) * cross_m
+    all in `dtype`.
     """
 
     def __init__(self, feature_dim: int, num_heads: int = 8,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attention = MultiHeadAttention(feature_dim, num_heads, dropout)
-        self.cross_attention = MultiHeadAttention(feature_dim, num_heads, dropout)
-        self.uncertainty_estimator = UncertaintyEstimator(feature_dim)
+        mha = lambda: MultiHeadAttention(feature_dim, num_heads, dropout,
+                                         dtype=dtype)
+        self.self_attention = mha()
+        self.cross_attention = mha()
+        self.uncertainty_estimator = UncertaintyEstimator(feature_dim,
+                                                          dtype=dtype)
         self.weight_network = MLP(3 * feature_dim + 3, [feature_dim, 3],
-                                  dropout=dropout, final_activation="softmax")
+                                  dropout=dropout, final_activation="softmax",
+                                  dtype=dtype)
 
     def forward(self, audio, video, text) -> dict[str, torch.Tensor]:
         a1, v1, t1 = (x[:, None, :] for x in (audio, video, text))

@@ -4,6 +4,13 @@ Port of `tpu_deer/models/deer_model.py`: three feature-level encoders →
 uncertainty-aware cross-modal attention → gated hierarchical fusion → three
 DEER evidence heads → uncertainty calibration. 3,918,324 parameters at the
 default config, as in the reference.
+
+`compute_dtype` (e.g. "bfloat16") is the dtype of the dense path, as the
+reference's: the inputs are cast to it on entry and every encoder,
+attention, fusion and evidence layer computes in it, while the parameters,
+the NIG math and the calibration layer stay float32 (`models/layers.py`).
+So `mu_all` and the uncertainties are float32; `attention_weights`,
+`modality_uncertainties` and `fused_features` are in the compute dtype.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from tpu_deer_torch.models.heads import (
     DEERPredictionHead,
     UncertaintyCalibrationLayer,
 )
-from tpu_deer_torch.models.layers import init_flax_style_
+from tpu_deer_torch.models.layers import init_flax_style_, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +56,11 @@ class DEERModelConfig:
     moe_experts: int = 4
     stacked_compute: bool = False
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (ValueError for a name that is not a float)."""
+        return torch_dtype(self.compute_dtype)
+
 
 def _check_supported(cfg: DEERModelConfig) -> None:
     if cfg.fusion_type != "hierarchical":
@@ -56,9 +68,6 @@ def _check_supported(cfg: DEERModelConfig) -> None:
             f"fusion_type={cfg.fusion_type!r}: only 'hierarchical' is ported")
     if cfg.stacked_compute:
         raise NotImplementedError("stacked_compute=True is not ported yet")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported")
 
 
 class CompleteDEERModel(nn.Module):
@@ -69,26 +78,28 @@ class CompleteDEERModel(nn.Module):
         super().__init__()
         _check_supported(config)
         self.config = cfg = config
+        self.dtype = dt = cfg.dtype
         enc = lambda dim: ModalityEncoder(dim, cfg.encoder_dim,
-                                          cfg.encoder_layers, cfg.dropout)
+                                          cfg.encoder_layers, cfg.dropout, dt)
         self.audio_encoder = enc(cfg.audio_dim)
         self.video_encoder = enc(cfg.video_dim)
         self.text_encoder = enc(cfg.text_dim)
         self.uncertainty_attention = UncertaintyAwareAttention(
-            cfg.encoder_dim, cfg.attention_heads, dropout=0.1)
+            cfg.encoder_dim, cfg.attention_heads, dropout=0.1, dtype=dt)
         self.fusion = HierarchicalFusion(cfg.encoder_dim, cfg.fusion_dim,
-                                         cfg.dropout)
+                                         cfg.dropout, dt)
         self.heads = nn.ModuleDict({
             name: DEERPredictionHead(cfg.fusion_dim, cfg.encoder_dim,
-                                     cfg.dropout, output_dim=1)
+                                     cfg.dropout, output_dim=1, dtype=dt)
             for name in cfg.dim_names
         })
         self.calibration = UncertaintyCalibrationLayer(cfg.emotion_dims)
 
     def forward(self, audio, video, text) -> dict:
-        a = self.audio_encoder(audio)
-        v = self.video_encoder(video)
-        t = self.text_encoder(text)
+        dt = self.dtype
+        a = self.audio_encoder(audio.to(dt))
+        v = self.video_encoder(video.to(dt))
+        t = self.text_encoder(text.to(dt))
         attended = self.uncertainty_attention(a, v, t)
         fused = self.fusion(attended["audio"], attended["video"],
                             attended["text"])

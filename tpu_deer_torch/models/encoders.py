@@ -30,28 +30,37 @@ from torch import nn
 
 from tpu_deer_torch.kernels.embedding import embedding_lookup
 from tpu_deer_torch.models.attention import MultiHeadAttention
-from tpu_deer_torch.models.layers import LN_EPS, MLP, ResidualBlock
+from tpu_deer_torch.models.layers import (
+    LN_EPS,
+    MLP,
+    ResidualBlock,
+    dense,
+    layer_norm,
+)
 
 
 class ModalityEncoder(nn.Module):
     """Feature-vector encoder: input proj → ReLU → LayerNorm → N residual
-    blocks → output proj."""
+    blocks → output proj, computed in `dtype` (flax's `dtype=`)."""
 
     def __init__(self, input_dim: int, output_dim: int = 256,
-                 num_layers: int = 3, dropout: float = 0.3):
+                 num_layers: int = 3, dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_proj = nn.Linear(input_dim, output_dim)
         self.input_norm = nn.LayerNorm(output_dim, eps=LN_EPS)
         self.blocks = nn.ModuleList(
-            ResidualBlock(output_dim, dropout) for _ in range(num_layers)
+            ResidualBlock(output_dim, dropout, dtype) for _ in range(num_layers)
         )
         self.output_proj = nn.Linear(output_dim, output_dim)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.input_norm(torch.relu(self.input_proj(x)))
+        h = torch.relu(dense(self.input_proj, x, self.dtype))
+        h = layer_norm(self.input_norm, h, self.dtype)
         for block in self.blocks:
             h = block(h)
-        return self.output_proj(h)
+        return dense(self.output_proj, h, self.dtype)
 
 
 class AttentionPooling(nn.Module):

@@ -13,15 +13,17 @@ from tpu_deer_torch.models.layers import MLP, lecun_normal_
 
 
 class DEERPredictionHead(nn.Module):
-    """Evidence network for one emotion dimension → NIG params + uncertainties."""
+    """Evidence network for one emotion dimension (computed in `dtype`) →
+    NIG params + uncertainties (float32: the evidence is cast up first)."""
 
     def __init__(self, in_features: int, hidden_dim: int = 256,
-                 dropout: float = 0.3, output_dim: int = 1):
+                 dropout: float = 0.3, output_dim: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.output_dim = output_dim
         self.evidence_network = MLP(
             in_features, [hidden_dim, hidden_dim // 2, 4 * output_dim],
-            dropout=dropout,
+            dropout=dropout, dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor) -> dict:

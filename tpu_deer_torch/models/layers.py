@@ -1,11 +1,25 @@
-"""Shared building blocks: residual MLP block, MLP, and flax-style init."""
+"""Shared building blocks: residual MLP block, MLP, flax-style init, and
+the compute-dtype casts of flax's `dtype=`.
+
+A module built with `dtype=torch.bfloat16` keeps its parameters in float32
+(flax's `param_dtype`) and computes as flax does with `dtype=jnp.bfloat16`:
+`dense` casts input, weight and bias to the compute dtype and returns the
+product in it; `layer_norm` takes its statistics and affine map in float32
+and casts the result; ReLU, `softmax`, `sigmoid` and the residual and gate
+adds then run in the compute dtype, `softmax` and `sigmoid` op by op as
+XLA expands them (each op rounded to the dtype). In float32 the helpers
+are the plain `nn.Linear`, `nn.LayerNorm`, `torch.softmax` and
+`torch.sigmoid` calls.
+"""
 
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # flax.linen.LayerNorm's default epsilon (torch's default is 1e-5).
@@ -56,17 +70,103 @@ def init_flax_style_(module: nn.Module,
                         nn.init.zeros_(p)
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The floating compute dtype a config names, as `jnp.dtype(name)`
+    reads it ("float32", "bfloat16", "float16", "float64", numpy's aliases
+    such as "f4" or "half"). Raises ValueError for a name that is not a
+    float type torch has."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    try:
+        np_name = np.dtype(name).name
+    except TypeError as e:
+        raise ValueError(f"unknown compute dtype {name!r}") from e
+    dtype = {"float16": torch.float16, "float32": torch.float32,
+             "float64": torch.float64}.get(np_name)
+    if dtype is None:
+        raise ValueError(f"compute dtype {name!r} is not a float type")
+    return dtype
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`layer` as flax's Dense(dtype=dtype): input, weight and bias cast to
+    `dtype`, the product returned in it. The stored parameters stay as they
+    are; their gradients come back in their own dtype.
+
+    Below the parameters' precision the bias is added to the product after
+    it was rounded to `dtype`, as flax adds it: a bias fused into the GEMM
+    rounds once, and on the CPU ATen's bf16 addmm rounds another way."""
+    if dtype == layer.weight.dtype:
+        return F.linear(x.to(dtype), layer.weight, layer.bias)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """`norm` as flax 0.12's LayerNorm(dtype=dtype) with its default
+    force_float32_reductions: mean, variance and (x − mean)·rsqrt(var +
+    eps)·scale + bias in float32 (at least), the result cast to `dtype`."""
+    stat = torch.promote_types(dtype, torch.float32)
+    return F.layer_norm(x.to(stat), norm.normalized_shape,
+                        norm.weight.to(stat), norm.bias.to(stat),
+                        norm.eps).to(dtype)
+
+
+def _below_float32(x: torch.Tensor) -> bool:
+    return torch.finfo(x.dtype).bits < 32
+
+
+class _Logistic(torch.autograd.Function):
+    """`lax.logistic` below float32: forward as XLA lowers it there,
+    1 / (1 + exp(−x)) with every op rounded to x's dtype (one fused
+    `torch.sigmoid` rounds once and differs in ~1/3 of bf16 values);
+    backward JAX's derivative rule g·(y·(1 − y)), op by op. Autograd
+    through the forward's ops would give 0·inf = NaN below x ≈ −88.7,
+    where exp(−x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid (`_Logistic` below float32)."""
+    if not _below_float32(x):
+        return torch.sigmoid(x)
+    return _Logistic.apply(x)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jax.nn.softmax: below float32 exp(x − max) (the max taking no
+    gradient), its sum (accumulated in float32) and the quotient each
+    rounded to x's dtype, as JAX computes and differentiates it."""
+    if not _below_float32(x):
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
+    return e / e.sum(dim=dim, keepdim=True)
+
+
 class ResidualBlock(nn.Module):
     """x + LayerNorm(Dropout(ReLU(Linear(x)))) — LayerNorm on the branch."""
 
-    def __init__(self, dim: int, dropout: float = 0.3):
+    def __init__(self, dim: int, dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dense = nn.Linear(dim, dim)
         self.dropout = nn.Dropout(dropout)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.norm(self.dropout(torch.relu(self.dense(x))))
+        h = self.dropout(torch.relu(dense(self.dense, x, self.dtype)))
+        return x + layer_norm(self.norm, h, self.dtype)
 
 
 class MLP(nn.Module):
@@ -75,7 +175,8 @@ class MLP(nn.Module):
     models)."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 dropout: float = 0.0, final_activation: Optional[str] = None):
+                 dropout: float = 0.0, final_activation: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if final_activation not in (None, "relu", "softmax"):
             raise ValueError(f"unsupported final_activation {final_activation!r}")
@@ -85,14 +186,15 @@ class MLP(nn.Module):
         )
         self.dropout = nn.Dropout(dropout)
         self.final_activation = final_activation
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = dense(layer, x, self.dtype)
             if i < len(self.layers) - 1:
                 x = self.dropout(torch.relu(x))
         if self.final_activation == "relu":
             x = torch.relu(x)
         elif self.final_activation == "softmax":
-            x = torch.softmax(x, dim=-1)
+            x = softmax(x, dim=-1)
         return x

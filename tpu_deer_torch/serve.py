@@ -151,9 +151,14 @@ class InferenceEngine:
                 [nig_expected_abs_error(out[f"{n}_params"]) for n in names],
                 dim=-1,
             ),
-            "attention_weights": out["attention_weights"],
+            # In the compute dtype (bf16 in the reference's bf16 mode); numpy
+            # has no bfloat16, so it leaves as float32 (exact).
+            "attention_weights": out["attention_weights"].float(),
         }
         if self._ood is not None:
+            # The fused features stay in the compute dtype: the score
+            # promotes them to float32 against the detector's mean, as
+            # jnp's promotion does in the reference.
             feats = (input_norm_features_device(audio, video, text)
                      if self._ood_space == "input_norm"
                      else out["fused_features"])

@@ -50,9 +50,17 @@ micro-step phase under accumulation) after `GRAPH_WARMUP` eager steps on a
 side stream, which are the epoch's first real steps, and replayed for the
 rest; between replays the host only seeds the dropout generator
 (`train/rng.py`) and counts. A failed capture raises. The graph bakes in
-the TF32 settings in force when it was captured; a change of them
-captures again. On the CPU the same function runs uncaptured. Data over
-`STAGE_BYTES_LIMIT` take the per-step path, as in the reference.
+the TF32 and bf16-reduction settings in force when it was captured; a
+change of them captures again. On the CPU the same function runs
+uncaptured. Data over `STAGE_BYTES_LIMIT` take the per-step path, as in
+the reference.
+
+A model whose `compute_dtype` is below float32 (bf16) trains through
+both steps as it is: its layers cast to that dtype where flax's `dtype=`
+does, while the loss, the NIG terms and the optimizer stay float32 and
+the gradients land in the float32 parameters (explicit casts, not
+`torch.autocast`, whose LayerNorm and softmax return float32 and whose
+weight-cast cache must be off in a capture).
 
 Knobs that only pick how XLA executes, or belong to later work, raise
 NotImplementedError away from their defaults: `remat=True`,
@@ -418,6 +426,14 @@ class DEERTrainer:
             weights.append(self.config.dataset_weights.get(name.lower(), 1.0))
         if not rows:
             return {}
+        return self._fused_rows(staged, rows, weights, lr_scale)
+
+    def _fused_rows(self, staged: dict, rows: Sequence[np.ndarray],
+                    weights: Sequence[float], lr_scale: float) -> dict[str, float]:
+        """The fused steps of `rows` (one global index vector into `staged`
+        a step) at their dataset weights; returns the steps' mean scalars,
+        fetched once. Calls with the same staged data and as many rows of
+        one batch size reuse one run, and so its graphs."""
         run = self._run
         shape = (len(rows), len(rows[0]))
         if run is None or run.data is not staged or tuple(run.idx.shape) != shape:
@@ -462,6 +478,7 @@ class DEERTrainer:
             return
         settings = (torch.backends.cuda.matmul.allow_tf32,
                     torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
                     torch.get_float32_matmul_precision())
         graph, table, captured = run.graphs.get(phase, (None, None, None))
         if table is not self.optimizer.table or captured != settings:
@@ -511,7 +528,8 @@ class DEERTrainer:
                 "loss": loss["total_loss"],
             }
             if with_fused:
-                res["fused"] = out["fused_features"]
+                # float32 (exact) for numpy, which has no bfloat16.
+                res["fused"] = out["fused_features"].float()
             if with_nig:
                 for field in ("nu", "alpha", "beta"):
                     res[field] = torch.cat([getattr(p, field) for p in ps], -1)
