@@ -91,6 +91,8 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               InferenceEngine.from_checkpoint in float and int8 (int8 vs
               float, int8 vs the dequantized weights in float, int8 on the
               card; graphed vs eager, predict p50 and busy share at 1-300),
+              the plots it wrote (the static figures where matplotlib
+              imports, else the dashboard, the data export and the reason),
               exported by `cli --mode export` in float and int8 (export
               wall, each file's bytes) and served by ExportedEngine (graphed
               vs eager, vs the live engine, p50), and `python -m
@@ -132,6 +134,32 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               reduced-precision reductions move, a graphed forward's time
               at 4,096 rows with them off and on, and bf16 predict at 1 and
               256 rows under the profiler.
+
+ 12. ensemble — a K = 4 deep ensemble of the flagship (15,673,296 params,
+              `train/ensemble.py`) on benchmark_v2 at the ensemble study's
+              131,072 rows, batch 2,048, dropout 0.1, float32: 2 fused
+              epochs graphed (one CUDA graph of the vmapped K-member step)
+              and the same 2 eagerly from one state (losses and parameters
+              within rtol/atol 1e-5), step p50 both ways, capture time, the
+              device time and busy share over an epoch of replays and over
+              an eager step; one dropout-off step against 4 single-model
+              DEERTrainer steps from the member slices (losses; gradients,
+              each also against the single model's in float64; parameters
+              within 2 lr); the combined predict on 8,192 rows, and
+              predict_mc_dropout (S = 8) on member 0 against a host loop
+              over the samples of a seeded forward of the repeated batch
+              (1e-5) and against itself (bit for bit), wall and device
+              times; the checkpoint served by InferenceEngine.from_checkpoint
+              (ensemble_members=4) in float and int8 at 1-300 rows, graphed
+              equal to eager in every element, p50 and device time at 1
+              and 256 rows, int8 μ within 0.05 of float; `cli --mode export
+              --ensemble 4` served by ExportedEngine (1e-5 of the live
+              engine) and `python -m tpu_deer_torch.server --checkpoint DIR
+              --ensemble 4` in a subprocess (/healthz, /predict);
+              add_teacher_targets(ensemble=True) over the 131,072 rows and a
+              fused epoch of distill_study.py's student on them (distill_mu
+              and distill_unc finite and > 0); no kernel of K1-K4 or the
+              embedding gradient launches on this path (raises otherwise).
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -224,6 +252,20 @@ COMPARE_STEPS, GRAPH_TOL = 8, (1e-5, 1e-5)
 # (validation every 10 epochs: one validation).
 TWIN_ROWS, TWIN_EPOCHS = 131072, 10
 PREDICT_SIZES = (1, 8, 64, 256, 300)  # every bucket, and a chunked request
+# Phase 12: a K = 4 ensemble of the flagship at the ensemble study's data
+# (benchmark_v2, 131,072 rows, batch 2,048), 2 fused epochs graphed and
+# eager; prediction and MC dropout on the study's 8,192 evaluation rows.
+ENS_MEMBERS, ENS_ROWS, ENS_BATCH, ENS_EVAL, ENS_EPOCHS = 4, 131072, 2048, 8192, 2
+# MC dropout against the repeated-batch forward (rtol, atol): the same masks,
+# GEMMs of another shape, moments in float32 against float64.
+MC_SAMPLES, MC_TOL = 8, (1e-5, 1e-5)
+# A K-member step's gradients against K single-model steps' (no dropout): the
+# flagship's float32 gradient at 2,048 rows is ~2e-3 (norm) from its float64
+# gradient on the CPU as well, and cuBLAS's batched and single GEMMs sum in
+# another order, so each float32 path carries its own such error. Held: the
+# ensemble's distance from the float64 gradient within this factor of the
+# single model's.
+ENS_GRAD_FACTOR = 2.0
 # The bf16 forward on the card against the CPU's (tests/test_torch_bf16_cuda.py):
 # |card − cpu| within these fractions of the CPU's own bf16-vs-float32 gap
 # on the same inputs (max, mean); BF16_ROWS standard-normal rows, seed 0.
@@ -1885,6 +1927,28 @@ def predict_p50(engine, feats, n, reps=30):
     return float(np.median(lat)) * 1e3
 
 
+def check_plots(plots, plot_dir):
+    """The quick run's plots: the interactive dashboard and the JSON data
+    export always, the static figures where matplotlib imports (else the
+    summary records why)."""
+    from tpu_deer_torch.viz.report import NO_MATPLOTLIB
+
+    try:
+        import matplotlib  # noqa: F401
+        static = True
+    except ImportError:
+        static = False
+    need = ["interactive_report.html", "report_data.json"] + (
+        ["summary.png", "va_space.png", "training_curves.png"] if static else [])
+    missing = [f for f in need if not os.path.exists(os.path.join(plot_dir, f))]
+    if missing or (plots.get("static") == NO_MATPLOTLIB) == static:
+        raise AssertionError(f"plots: missing {missing}, summary {plots}")
+    print(f"main: matplotlib imports: {'yes' if static else 'no'}; the quick "
+          f"run wrote {len(os.listdir(plot_dir))} plot files "
+          + ("" if static else f"(\"static\": {NO_MATPLOTLIB!r}) ")
+          + f"into plots/: {', '.join(sorted(os.listdir(plot_dir)))}")
+
+
 def phase_main(torch, k4):
     """The feature-level main path: CLI quick run, int8 serving of its
     checkpoint, K4 on its kernels. Returns K4's launches in (c) and its
@@ -1930,10 +1994,10 @@ def phase_main(torch, k4):
         summary, res = results["pipeline_summary"], results["evaluation"]["synthetic"]
         conformal = results["conformal"]["synthetic"]["empirical_coverage"]
         if res["n_parameters"] != 3_918_324 or res["n_samples"] != QUICK_ROWS[2] \
-                or summary["plots"] is not None or not all(
-                    math.isfinite(res[k]) for k in ("ccc_average", "ece")):
+                or not all(math.isfinite(res[k]) for k in ("ccc_average", "ece")):
             raise AssertionError(f"quick run: {res['n_parameters']} params, "
                                  f"{res['n_samples']} test rows, bad metrics")
+        check_plots(summary["plots"], os.path.join(exp, "plots"))
         with open(os.path.join(exp, "results", "final_report.md")) as f:
             if f"device: {DEVICE}" not in f.read():
                 raise AssertionError("the quick run did not run on the card")
@@ -2360,6 +2424,376 @@ def phase_recipe(torch):
               f"platform {payload['platform']!r}")
 
 
+def mc_reference(torch, trainer, dataset, n_samples, batch_size, seed):
+    """predict_mc_dropout's numbers by another route: per batch one seeded
+    forward over the batch repeated S times (S·B rows; its dropout draws
+    are laid out as the vmapped [S, B, ...] draws), the S samples split off
+    in a host loop and moment-matched in float64."""
+    from tpu_deer_torch.data.pipeline import BatchIterator
+    from tpu_deer_torch.models.deer_model import uncertainty_outputs
+    from tpu_deer_torch.train.rng import forked_rng, seed_global
+
+    names = trainer.model.config.dim_names
+    outs, masks = {}, []
+    trainer.model.train()
+    with torch.no_grad(), forked_rng(trainer.device):
+        seed_global(trainer.device, seed)
+        for idx, mask in BatchIterator(dataset, batch_size,
+                                       shuffle=False).epoch_indices(0):
+            batch = trainer._batch_from_indices(dataset, idx)
+            out = uncertainty_outputs(trainer.model(*(
+                batch[k].repeat(n_samples, 1) for k in ("audio", "video", "text"))),
+                names)
+            b = len(idx)
+            samples = [{k: v[i * b:(i + 1) * b].double().cpu().numpy()
+                        for k, v in out.items()} for i in range(n_samples)]
+            mu = np.mean([x["mu"] for x in samples], axis=0)
+            d = np.var([x["mu"] for x in samples], axis=0)
+            mean = lambda key: np.mean([x[key] for x in samples], axis=0)
+            res = {"mu": mu, "aleatoric": mean("aleatoric"),
+                   "epistemic": mean("epistemic") + d,
+                   "calibrated_uncertainty": mean("calibrated_uncertainty") + d}
+            res["uncertainty"] = res["aleatoric"] + res["epistemic"]
+            for k, v in res.items():
+                outs.setdefault(k, []).append(v)
+            masks.append(mask.astype(bool))
+    trainer.model.eval()
+    keep = np.concatenate(masks)
+    return {k: np.concatenate(v)[keep] for k, v in outs.items()}
+
+
+def no_dropout(model):
+    for m in model.modules():
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+    return model
+
+
+def phase_ensemble(torch, wrappers):
+    """Phase 12: a K = 4 deep ensemble of the full-width flagship trained
+    (graphed against eager; one dropout-off step against 4 single-model
+    steps), predicted, MC dropout on one member, served in float and int8,
+    exported and served over HTTP, and distilled into a student."""
+    import dataclasses
+    import tempfile
+
+    from tpu_deer_torch import cli
+    from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
+    from tpu_deer_torch.data.synthetic import benchmark_v2, make_synthetic_splits
+    from tpu_deer_torch.export import load_exported
+    from tpu_deer_torch.models.deer_model import (
+        CompleteDEERModel,
+        DEERModelConfig,
+        create_complete_deer_model,
+        member_forward,
+    )
+    from tpu_deer_torch.serve import InferenceEngine
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+    from tpu_deer_torch.train.distill import add_teacher_targets
+    from tpu_deer_torch.train.ensemble import EnsembleTrainer, create_deer_ensemble
+    from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
+
+    for fn in wrappers:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    platform = "auto" if DEVICE == "cuda" else DEVICE
+    k, bs = ENS_MEMBERS, ENS_BATCH
+    splits = make_synthetic_splits(benchmark_v2(n_train=ENS_ROWS, n_val=ENS_EVAL,
+                                                n_test=8))
+    train = ArrayDataset(splits["train"], "synthetic")
+    val = ArrayDataset(splits["val"], "synthetic")
+    cfg = DEERModelConfig(dropout=0.1)
+    model, stack = create_deer_ensemble(cfg, k, seed=1, device=DEVICE)
+    n_params = sum(v.numel() for v in stack.values())
+    if n_params != k * 3_918_324:
+        raise AssertionError(f"ensemble of {n_params} parameters")
+    steps = ENS_ROWS // bs
+    tcfg = TrainingConfig(learning_rate=2e-3, batch_size=bs, num_epochs=30,
+                          warmup_epochs=2, scheduler="cosine", seed=1,
+                          dataset_weights={"synthetic": 1.0}, fused_epochs=True)
+
+    # (a) 2 fused epochs graphed and the same 2 eagerly from one state.
+    graphed = EnsembleTrainer(model, stack, tcfg, steps_per_epoch=steps,
+                              device=DEVICE)
+    eager = EnsembleTrainer(model, stack, dataclasses.replace(
+        tcfg, fused_epochs=False), steps_per_epoch=steps, device=DEVICE)
+    iters = {"synthetic": BatchIterator(train, bs, shuffle=True, drop_last=True,
+                                        seed=1)}
+    times = {"graphed": [], "eager": []}
+    losses = {"graphed": [], "eager": []}
+    saved = (timed_method(DEERTrainer, "_fused_step", times["graphed"], torch),
+             timed_method(DEERTrainer, "_train_step", times["eager"], torch))
+    try:
+        for epoch in range(ENS_EPOCHS):
+            losses["graphed"].append(graphed.train_epoch(iters, epoch)["loss"])
+            losses["eager"].append(eager.train_epoch(iters, epoch)["loss"])
+    finally:
+        DEERTrainer._fused_step, DEERTrainer._train_step = saved
+    warm = graphed.GRAPH_WARMUP
+    if DEVICE == "cuda" and graphed.graph_replays != ENS_EPOCHS * steps - warm:
+        raise AssertionError(f"ensemble: {graphed.graph_replays} replays of "
+                             f"{ENS_EPOCHS * steps} steps")
+    for got, ref in zip(losses["graphed"], losses["eager"]):
+        check_close("ensemble graphed vs eager loss", torch.tensor(got),
+                    torch.tensor(ref), *GRAPH_TOL)
+    err = max(check_close(f"ensemble graphed vs eager {name}", p,
+                          eager.params[name], *GRAPH_TOL)
+              for name, p in graphed.params.items())
+    differ = sum(not torch.equal(p, eager.params[name])
+                 for name, p in graphed.params.items())
+    g_p50 = np.median(times["graphed"][warm:]) * 1e3
+    e_p50 = np.median(times["eager"][1:]) * 1e3
+    print(f"ensemble: K={k} flagship members ({n_params} params), "
+          f"benchmark_v2 {ENS_ROWS} rows, batch {bs}, dropout 0.1, float32 "
+          f"(TF32 off): {ENS_EPOCHS} fused epochs graphed ({warm} eager "
+          f"warm-up steps, {graphed.graph_replays} replays) vs eager from one "
+          f"state: train loss " + ", ".join(
+              f"{a:.7f} vs {b:.7f}" for a, b in zip(losses["graphed"],
+                                                   losses["eager"]))
+          + f"; parameters max abs diff {err:.3e} (rtol, atol {GRAPH_TOL}), "
+          f"{differ} of {len(stack)} tensors differ in any bit")
+    print(f"ensemble: step p50 graphed {g_p50:.4f} ms, eager {e_p50:.4f} ms "
+          f"(host clock to a synchronize; {k * bs / g_p50 * 1e3:.0f} member-"
+          f"rows/s graphed); capture {graphed.graph_capture_s:.3f} s (host "
+          f"clock)")
+    kernels = profile_window(torch, f"an ensemble epoch of {steps} graphed "
+                             f"steps", lambda: graphed.train_epoch(
+                                 iters, ENS_EPOCHS), windows=3)
+    if kernels:
+        print(f"ensemble: device time per graphed step "
+              f"{sum(kernels.values()) / steps:.4f} ms")
+    batch = eager._batch_from_indices(train, np.arange(bs))
+    profile_window(torch, f"eager ensemble step at batch {bs}",
+                   lambda: eager._train_step(batch, 1.0, 1.0))
+    del eager
+
+    # One dropout-off step: the ensemble against 4 single-model trainers
+    # started from the member slices, each gradient also against the
+    # single model's in float64.
+    cfg0 = DEERModelConfig(dropout=0.0)
+    m0, s0 = create_deer_ensemble(cfg0, k, seed=3, device=DEVICE)
+    tc0 = TrainingConfig(learning_rate=2e-3, batch_size=bs, scheduler="constant",
+                         seed=1, dataset_weights={"synthetic": 1.0})
+    ens = EnsembleTrainer(no_dropout(m0), s0, tc0, steps_per_epoch=steps,
+                          device=DEVICE)
+    args = (batch["audio"], batch["video"], batch["text"])
+    ens.model.train()
+    m_loss, _ = member_forward(ens.model, ens.params, *args,
+                               lambda out: ens._loss_terms(out, batch, 1.0),
+                               randomness="different")
+    e_grads = torch.autograd.grad(m_loss.sum(), list(ens.params.values()))
+    ens._train_step(batch, 1.0, 1.0)
+    loss_err = param_err = 0.0
+    acc = []  # per member: (|ens - f64|, |single - f64|, |ens - single|) norms
+    for i in range(k):
+        runs = {}
+        for dtype in ("float32", "float64"):
+            single = CompleteDEERModel(dataclasses.replace(cfg0, compute_dtype=dtype))
+            single.load_state_dict({n: v[i] for n, v in s0.items()})
+            st = DEERTrainer(no_dropout(single.to(getattr(torch, dtype))), tc0,
+                             steps_per_epoch=steps, device=DEVICE)
+            st.model.train()
+            loss, _ = st._loss_fn({n: v.to(getattr(torch, dtype))
+                                   for n, v in batch.items()}, 1.0)
+            runs[dtype] = (st, loss, torch.autograd.grad(loss, list(st.params.values())))
+        st, loss, grads = runs["float32"]
+        loss_err = max(loss_err, check_close("ensemble vs single loss",
+                                             m_loss[i].detach(), loss.detach(),
+                                             *TRAIN_TOL["loss"]))
+        # Gradients that are 0 in exact arithmetic (the attention's query and
+        # key projections over one key) hold float noise only: left out.
+        ref = runs["float64"][2]
+        top = max(r.abs().max().item() for r in ref)
+        keep = [j for j, r in enumerate(ref) if r.abs().max().item() > 1e-4 * top]
+        flat = lambda gs: torch.cat([gs[j].double().flatten() for j in keep])
+        g64, g32 = flat(ref), flat(grads)
+        g_ens = flat([g[i] for g in e_grads])
+        acc.append((((g_ens - g64).norm() / g64.norm()).item(),
+                    ((g32 - g64).norm() / g64.norm()).item(),
+                    ((g_ens - g32).norm() / g32.norm()).item()))
+        if acc[-1][0] > ENS_GRAD_FACTOR * acc[-1][1] + 1e-6:
+            raise AssertionError(f"member {i}: the ensemble's gradient is "
+                                 f"{acc[-1][0]:.3e} from float64, the single "
+                                 f"model's {acc[-1][1]:.3e}")
+        st._train_step(batch, 1.0, 1.0)
+        for n, p in st.params.items():
+            param_err = max(param_err, (ens.params[n][i] - p).abs().max().item())
+    bound = 2 * tc0.learning_rate * (1 + tc0.weight_decay * max(
+        v.abs().max().item() for v in s0.values()))
+    if param_err > bound:
+        raise AssertionError(f"ensemble vs single step: parameters differ by "
+                             f"{param_err:.3e} > {bound:.3e}")
+    print(f"ensemble: one dropout-off step, K={k} batched vs {k} single "
+          f"DEERTrainer steps from the member slices: loss max abs diff "
+          f"{loss_err:.3e} (TRAIN_TOL); gradients (norm over the {len(keep)} "
+          f"tensors not 0 in exact arithmetic, relative) ensemble vs single "
+          + ", ".join(f"{c:.3e}" for _, _, c in acc) + "; against float64 "
+          "ensemble " + ", ".join(f"{a:.3e}" for a, _, _ in acc) + ", single "
+          + ", ".join(f"{b:.3e}" for _, b, _ in acc)
+          + f" (the ensemble's within {ENS_GRAD_FACTOR}x the single model's "
+          f"distance + 1e-6); parameters max abs diff {param_err:.3e} (Adam's "
+          f"first step moves an entry by at most lr(1 + wd|p|), so the bound "
+          f"that holds is twice that, {bound:.3e})")
+    del ens, st, runs, m0, s0, e_grads, grads
+
+    # (b) prediction, and MC dropout on member 0.
+    t0 = time.perf_counter()
+    pred = graphed.predict(val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(np.isfinite(v).all() and v.shape == (ENS_EVAL, 3)
+               for v in pred.values()):
+        raise AssertionError("ensemble predict: bad outputs")
+    dev = device_ms(torch, lambda: graphed.predict(val), calls=3)
+    print(f"ensemble: predict on {ENS_EVAL} rows {wall * 1e3:.2f} ms (host "
+          f"clock, first call), {ms_text(dev)} on the device a call")
+    member = CompleteDEERModel(cfg)
+    member.load_state_dict(graphed.member_params(0))
+    mc = DEERTrainer(member, tcfg, steps_per_epoch=steps, device=DEVICE)
+    t0 = time.perf_counter()
+    got = mc.predict_mc_dropout(val, n_samples=MC_SAMPLES, batch_size=bs, seed=SEED)
+    wall = time.perf_counter() - t0
+    ref = mc_reference(torch, mc, val, MC_SAMPLES, bs, SEED)
+    mc_err = max(check_close(f"MC dropout {key}", torch.from_numpy(v).double(),
+                             torch.from_numpy(ref[key]), *MC_TOL)
+                 for key, v in got.items())
+    again = mc.predict_mc_dropout(val, n_samples=MC_SAMPLES, batch_size=bs,
+                                  seed=SEED)
+    if not all(np.array_equal(v, again[key]) for key, v in got.items()):
+        raise AssertionError("MC dropout: one seed gave two answers")
+    dev = device_ms(torch, lambda: mc.predict_mc_dropout(
+        val, n_samples=MC_SAMPLES, batch_size=bs, seed=SEED), calls=3)
+    print(f"ensemble: MC dropout S={MC_SAMPLES} on {ENS_EVAL} rows: {wall * 1e3:.2f} "
+          f"ms (host clock), {ms_text(dev)} on the device a call; vs a host "
+          f"loop over S seeded samples max abs err {mc_err:.3e} (MC_TOL); a "
+          f"seed repeats bit for bit")
+    del mc, member
+
+    with tempfile.TemporaryDirectory(prefix="ensemble_") as out:
+        models = os.path.join(out, "models")
+        CheckpointManager(models).save(
+            graphed.state_dict(), graphed.step,
+            metrics={"serving_channel": "eabs", "ensemble_members": k},
+            is_best=True)
+
+        # (c) serving the checkpoint, float and int8, graphed and eager.
+        engines = {q: InferenceEngine.from_checkpoint(
+            models, ensemble_members=k, quantize_weights=q == "int8",
+            device=DEVICE) for q in ("float", "int8")}
+        eagers = {q: InferenceEngine.from_checkpoint(
+            models, ensemble_members=k, quantize_weights=q == "int8",
+            device=DEVICE, graphs=False) for q in engines}
+        for e in engines.values():
+            e.warmup()
+        feats = [splits["val"][c][:max(PREDICT_SIZES)]
+                 for c in ("audio", "video", "text")]
+        for q, e in engines.items():
+            differ = total = 0
+            for n in PREDICT_SIZES:
+                d_, t_, _ = graph_vs_eager(torch, f"ensemble {q} predict({n})",
+                                           e.predict(*(f[:n] for f in feats)),
+                                           eagers[q].predict(*(f[:n] for f in feats)))
+                differ, total = differ + d_, total + t_
+            if DEVICE == "cuda" and differ:
+                raise AssertionError(f"ensemble {q}: graphed and eager differ "
+                                     f"in {differ} of {total} elements")
+            print(f"ensemble: {q} engine graphed vs eager at {PREDICT_SIZES}: "
+                  f"{differ} of {total} elements differ; p50 " + ", ".join(
+                      f"{n}: {predict_p50(e, feats, n):.4f} ms"
+                      for n in PREDICT_SIZES) + " (host clock, 30 requests); "
+                  + "; ".join(f"{n} rows {ms_text(device_ms(torch, lambda: e.predict(*(f[:n] for f in feats))))} on the device"
+                              for n in (1, 256)))
+        live = engines["float"].predict(*feats)
+        ref = {key: pred[key][:len(feats[0])] for key in ("mu", "uncertainty",
+                                                          "calibrated_uncertainty")}
+        live_err = max(check_close(f"ensemble engine vs trainer {key}",
+                                   torch.from_numpy(live[key]),
+                                   torch.from_numpy(v), *GRAPH_TOL)
+                       for key, v in ref.items())
+        q_err = float(np.abs(engines["int8"].predict(*feats)["mu"]
+                             - live["mu"]).max())
+        if not q_err <= 0.05:
+            raise AssertionError(f"ensemble int8 mu vs float {q_err:.3e} > 0.05")
+        print(f"ensemble: engine vs the trainer's predict max abs err "
+              f"{live_err:.3e}; int8 vs float mu {q_err:.4e} (limit 0.05)")
+        del eagers
+
+        # (d) export and the server.
+        root = os.path.join(out, "export")
+        t0 = time.perf_counter()
+        rc = cli.main(["--mode", "export", "--ensemble", str(k), "--model_path",
+                       models, "--output_dir", root, "--experiment_name",
+                       "export", "--platform", platform])
+        wall = time.perf_counter() - t0
+        d = os.path.join(root, "exported_model")
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        exported = load_exported(d, device=DEVICE)
+        exported.warmup()
+        if rc != 0 or exported.manifest["ensemble_members"] != k:
+            raise AssertionError(f"ensemble export: rc {rc}, {exported.manifest}")
+        exp_err = 0.0
+        for n in PREDICT_SIZES:
+            rows = [f[:n] for f in feats]
+            got = exported.predict(*rows)
+            want = engines["float"].predict(*rows)
+            exp_err = max(exp_err, *(check_close(
+                f"ensemble exported vs live {key}", torch.from_numpy(v),
+                torch.from_numpy(want[key]), *GRAPH_TOL) for key, v in got.items()))
+        print(f"ensemble: cli --mode export --ensemble {k} wall {wall:.2f} s, "
+              f"{sum(sizes.values())} B ({', '.join(f'{f} {n} B' for f, n in sizes.items())}); "
+              f"ExportedEngine vs the live engine at {PREDICT_SIZES} max abs err "
+              f"{exp_err:.3e}; predict 256 p50 {predict_p50(exported, feats, 256):.4f} ms")
+        del exported
+        rows = [f[:5] for f in feats]
+        payload = dict(zip(("audio", "video", "text"), (r.tolist() for r in rows)))
+        want = engines["float"].predict(*rows)
+        with served(["--checkpoint", models, "--ensemble", str(k), "--platform",
+                     platform]) as (call, started):
+            got = call("/predict", payload)
+            srv_err = max(check_close(f"ensemble server {key}", torch.tensor(got[key]),
+                                      torch.from_numpy(want[key]).double(), *FEAT_TOL)
+                          for key in ("mu", "uncertainty", "expected_abs_error"))
+            health = call("/healthz")
+            if health.get("status") != "ok" or health["requests_served"] != 1:
+                raise AssertionError(f"ensemble server /healthz: {health}")
+        print(f"ensemble: python -m tpu_deer_torch.server --checkpoint DIR "
+              f"--ensemble {k}: up in {started:.2f} s, /healthz ok, /predict of "
+              f"5 rows vs the engine max abs err {srv_err:.3e}; exit 0 on SIGINT")
+        del engines
+
+    # (e) distillation: the ensemble's combined outputs stamped on the
+    # training rows, and a fused epoch of distill_study.py's student.
+    t0 = time.perf_counter()
+    stamped = add_teacher_targets(graphed.model, train, batch_size=bs,
+                                  ensemble=True, params=graphed.params)
+    wall = time.perf_counter() - t0
+    if not all(np.isfinite(stamped.arrays[c]).all()
+               for c in ("teacher_mu", "teacher_unc")):
+        raise AssertionError("teacher targets are not finite")
+    student = create_complete_deer_model(DEERModelConfig(
+        encoder_dim=96, fusion_dim=128, encoder_layers=1, attention_heads=4),
+        seed=2, device=DEVICE)
+    s_tr = DEERTrainer(student, tcfg, steps_per_epoch=steps, device=DEVICE)
+    t0 = time.perf_counter()
+    res = s_tr.train_epoch({"synthetic": BatchIterator(
+        stamped, bs, shuffle=True, drop_last=True, seed=2)}, 0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    if not (np.isfinite(res["distill_mu"]) and res["distill_mu"] > 0
+            and np.isfinite(res["distill_unc"]) and res["distill_unc"] > 0):
+        raise AssertionError(f"student epoch: {res}")
+    print(f"ensemble: add_teacher_targets(ensemble=True) over {ENS_ROWS} rows "
+          f"{wall:.2f} s (host clock); the student ({s_tr.n_parameters} "
+          f"params) one fused epoch ({s_tr.graph_replays} replays) {epoch_s:.2f} "
+          f"s: loss {res['loss']:.5f}, distill_mu {res['distill_mu']:.5f}, "
+          f"distill_unc {res['distill_unc']:.5f}")
+    launched = {fn.__name__: fn.launches for fn in wrappers}
+    if any(launched.values()):
+        raise AssertionError(f"phase 12 launched kernels: {launched}")
+    print(f"ensemble: kernel launches in phase 12: {launched} (none lies on "
+          f"this path); phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 class _Tee:
     """A text stream that writes to several (the bench's stderr goes to the
     terminal as it runs and is kept for the checks)."""
@@ -2570,6 +3004,10 @@ def main() -> int:
     k4_record["max_abs_err"] = max(k4_record["max_abs_err"], err)
     phase_recipe(torch)
     phase_bench(torch, k1, k2)
+    phase_ensemble(torch, (k1.mfcc_signal, k2.mfcc_frames, k3.flash_attention_fwd,
+                           k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv,
+                           emb.embedding_grad, k4.quantize_int8_stochastic,
+                           k4.quantize_int8_stochastic_bits))
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

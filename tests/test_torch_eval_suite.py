@@ -124,5 +124,10 @@ def test_headline_twin_writes_the_reference_payload(tmp_path):
     assert "| CCC average |" in md and "EVALUATION REPORT" in md
     saved = np.load(out + "_predictions.npz")
     assert saved["mu"].shape == (256, 3) and len(saved["history_train_loss"]) == 2
-    with pytest.raises(NotImplementedError, match="queue 1, entry 5"):
-        synthetic_headline.main(["--platform", "cpu", "--figures", str(tmp_path)])
+    # The plots are ported: --figures_from renders them from the
+    # saved predictions.
+    figures = tmp_path / "figures"
+    assert synthetic_headline.main(["--figures_from", out + "_predictions.npz",
+                                    "--figures", str(figures)]) == 0
+    assert {"interactive_report.html", "report_data.json"} <= set(
+        os.listdir(figures))

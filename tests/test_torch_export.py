@@ -192,7 +192,7 @@ def test_refusals(artifacts, tmp_path):
                     rng.normal(size=(64, 32)).astype(np.float32)))
     with pytest.raises(ValueError, match="platforms"):
         export_inference(model, str(tmp_path / "t"), BUCKETS, ("tpu",))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="stacked member params"):
         export_inference(model, str(tmp_path / "e"), BUCKETS, ("cpu",),
                          ensemble=True)
 

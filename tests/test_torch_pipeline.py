@@ -271,7 +271,9 @@ def test_main_full_then_evaluate_on_cpu(tmp_path):
     exp = tmp_path / "e"
     with open(exp / "results" / "pipeline_summary.json") as f:
         summary = json.load(f)
-    assert summary["plots"] is None
+    plots = summary["plots"]
+    for name in ("interactive", "report_data", "summary", "training_curves"):
+        assert os.path.exists(plots[name]), name
     assert summary["test_results"]["synthetic"]["n_samples"] == 128
     for path in ("configs/config.yaml", "results/training_history.json",
                  "results/evaluation.json", "results/conformal.json",
@@ -285,12 +287,60 @@ def test_main_full_then_evaluate_on_cpu(tmp_path):
     assert tcli.main(["--mode", "test", "--platform", "cpu"]) == 0
 
 
-@pytest.mark.parametrize("argv", [["--mode", "visualize"],
-                                  ["--mode", "export", "--ensemble", "2"],
-                                  ["--raw"], ["--ensemble", "2"]])
+@pytest.mark.parametrize("argv", [["--raw"]])
 def test_main_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError):
         tcli.main([*argv, "--platform", "cpu"])
+
+
+def _small_config(tmp_path):
+    cfg = tconfig.default_config()
+    cfg["model"].update(encoder_dim=32, fusion_dim=64, encoder_layers=1)
+    path = str(tmp_path / "small.yaml")
+    tconfig.save_yaml_config(cfg, path)
+    return path
+
+
+@pytest.mark.parametrize("argv", [["--mode", "visualize"],
+                                  ["--mode", "export", "--ensemble", "2"],
+                                  ["--ensemble", "2"]],
+                         ids=["visualize", "export_ensemble", "ensemble"])
+def test_main_runs_what_was_refused(argv, tmp_path):
+    """The paths the CLI refused before deep ensembles and the plots were
+    ported, run on the CPU at a narrow width; each checks what it wrote."""
+    out = tmp_path / "out"
+    assert tcli.main([*argv, "--config", _small_config(tmp_path), "--output_dir",
+                      str(out), "--experiment_name", "e", "--platform", "cpu",
+                      "--quick", "--epochs", "1"]) == 0
+    if argv[-1] == "visualize":
+        plots = out / "e" / "plots"
+        with open(plots / "report_data.json") as f:
+            data = json.load(f)
+        assert np.isfinite(data["metrics"]["ccc_average"])
+        for name in ("interactive", "summary", "attention_heatmap",
+                     "decomposition"):
+            assert os.path.exists(data["plots"][name]), name
+    elif argv[1] == "export":
+        with open(out / "exported_model" / "manifest.json") as f:
+            manifest = json.load(f)
+        assert manifest["ensemble_members"] == 2
+        assert manifest["n_params"] == 2 * sum(
+            v.numel() for v in tcli.MultimodalDEERPipeline(
+                config_path=_small_config(tmp_path), output_dir=str(tmp_path),
+                experiment_name="n", device="cpu").create_model().parameters())
+    else:
+        exp = out / "e"
+        with open(exp / "results" / "pipeline_summary.json") as f:
+            summary = json.load(f)
+        with open(exp / "models" / "best" / "meta.json") as f:
+            assert json.load(f)["metrics"]["ensemble_members"] == 2
+        state = torch.load(exp / "models" / "best" / "state.pt",
+                           weights_only=True)["model"]
+        assert all(v.shape[0] == 2 for v in state.values())
+        res = summary["test_results"]["synthetic"]
+        assert res["n_samples"] == 128 and np.isfinite(res["ccc_average"])
+        assert (exp / "results" / "conformal.json").exists()
+        assert os.path.exists(summary["plots"]["report_data"])
 
 
 def test_main_auto_needs_a_card(monkeypatch, tmp_path):

@@ -239,6 +239,7 @@ def test_from_checkpoint_serves_the_recorded_channel(tmp_path):
     assert engine.serving_channel == "eabs"
     for key, v in engine.model.state_dict().items():
         assert torch.equal(v, sd[key]), key
-    with pytest.raises(NotImplementedError):
+    # A single model's checkpoint is not a 2-member ensemble's.
+    with pytest.raises(ValueError, match="member"):
         InferenceEngine.from_checkpoint(str(tmp_path), device="cpu",
                                         ensemble_members=2)

@@ -149,7 +149,8 @@ def test_entry_points_default_to_cuda(entry):
 @pytest.mark.parametrize("kw", [dict(quantize_weights=True, ensemble=True),
                                 dict(ensemble=True)])
 def test_unported_serving_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    # Ensembles are served; without stacked members they raise.
+    with pytest.raises(ValueError, match="stacked member params"):
         InferenceEngine(CompleteDEERModel(), device="cpu", **kw)
 
 

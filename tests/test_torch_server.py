@@ -401,8 +401,13 @@ def test_conformal_loader(tmp_path):
                                "quantiles": [1.0, float("inf"), 1.0]}))
     with pytest.raises(ValueError, match="non-finite"):
         tserver.PredictionService.load_conformal(str(bad))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tserver.PredictionService.from_checkpoint(str(tmp_path),
+    # A single model's checkpoint is not a 2-member ensemble's.
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+
+    CheckpointManager(str(tmp_path / "ckpt")).save(
+        {"model": CompleteDEERModel().state_dict()}, step=1, is_best=True)
+    with pytest.raises(ValueError, match="member"):
+        tserver.PredictionService.from_checkpoint(str(tmp_path / "ckpt"),
                                                   ensemble_members=2)
 
 
@@ -507,7 +512,7 @@ def test_predict_json_without_uncertainty_names_the_artifact():
     (["--exported", "e", "--ood", "det.npz"], SystemExit),
     (["--exported", "e", "--stream_slots", "2"], SystemExit),
     (["--exported", "e", "--platform", "tpu"], SystemExit),
-    (["--checkpoint", "c", "--ensemble", "2"], NotImplementedError),
+    (["--exported", "e", "--ensemble", "2"], SystemExit),
 ])
 def test_main_argument_errors(argv, error):
     with pytest.raises(error):

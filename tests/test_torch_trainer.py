@@ -386,14 +386,18 @@ def test_unported_knobs_raise(tmp_path):
         DEERTrainer(model, TrainingConfig(), mesh=object(), device="cpu")
     trainer = DEERTrainer(model, TrainingConfig(rng_impl="threefry2x32"),
                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.predict_mc_dropout(None)
+    # MC dropout and teacher targets are ported: a bad sample count
+    # raises, and a stamped dataset trains with its distillation terms.
+    with pytest.raises(ValueError, match="n_samples"):
+        trainer.predict_mc_dropout(None, n_samples=0)
     (tr, va), = _datasets("A").values()
     distill = ArrayDataset({**tr, "teacher_mu": tr["labels"],
-                            "teacher_unc": tr["labels"]})
-    with pytest.raises(NotImplementedError):
-        trainer.train({"synthetic": distill}, {"synthetic": ArrayDataset(va)},
-                      num_epochs=1)
+                            "teacher_unc": np.abs(tr["labels"]) + 0.1})
+    trainer = DEERTrainer(model, TrainingConfig(batch_size=16, num_epochs=1),
+                          steps_per_epoch=6, device="cpu")
+    metrics = trainer.train_epoch({"synthetic": BatchIterator(
+        distill, 16, shuffle=True, drop_last=True)}, 0)
+    assert metrics["distill_mu"] > 0 and metrics["distill_unc"] > 0
     for foreign in ("state.msgpack", "manifest.json"):  # JAX's formats
         root = str(tmp_path / foreign)
         os.makedirs(os.path.join(root, "step_00000001"))

@@ -20,17 +20,19 @@ follow the reference so each piece has an obvious counterpart:
   tpu_deer.core.{nig,losses}   → tpu_deer_torch.core.*
   tpu_deer.core.metrics        → tpu_deer_torch.core.metrics (numpy half)
   tpu_deer.models.*            → tpu_deer_torch.models.*
-  tpu_deer.train.{trainer,checkpoint,raw_trainer}
+  tpu_deer.train.{trainer,checkpoint,raw_trainer,ensemble,distill}
                                → tpu_deer_torch.train.*
   tpu_deer.eval.{ood,evaluator,statistics,calibration,conformal,
                  uncertainty,comprehensive}
                                → tpu_deer_torch.eval.* (numpy parts: own
                                  copies)
-  experiments/synthetic_headline.py
-                               → tpu_deer_torch.experiments.synthetic_headline
+  experiments/{synthetic_headline,ensemble_study}.py
+                               → tpu_deer_torch.experiments.*
+  tpu_deer.viz.{report,html_report}
+                               → tpu_deer_torch.viz.* (own copies)
   tpu_deer.utils.{config,logging}
                                → tpu_deer_torch.utils.*
-  tpu_deer.serve               → tpu_deer_torch.serve (float and int8)
+  tpu_deer.serve               → tpu_deer_torch.serve (float, int8, ensembles)
   tpu_deer.stream              → tpu_deer_torch.stream
   tpu_deer.server              → tpu_deer_torch.server
   tpu_deer.export              → tpu_deer_torch.export (torch.export)

@@ -6,6 +6,8 @@ Port of `tpu_deer/cli.py`:
     python -m tpu_deer_torch.cli --mode train --config configs/config.yaml
     python -m tpu_deer_torch.cli --mode evaluate --model_path <models dir>
     python -m tpu_deer_torch.cli --mode export --model_path <models dir> [--int8]
+    python -m tpu_deer_torch.cli --mode visualize --model_path <models dir>
+    python -m tpu_deer_torch.cli --mode full --quick --ensemble 4
     python -m tpu_deer_torch.cli --mode full --quick --platform cpu
 
 `--platform auto` (the default) and `cuda` run on the CUDA card and raise
@@ -23,9 +25,17 @@ in int8 with `--int8`, with an OOD score with `--ood_detector` (the
 evaluate stage's `results/ood_detector.npz`) at `--ood_fpr`, for the
 platform of `--platform`.
 
-Not ported yet, and raising NotImplementedError: plots (`--mode visualize`;
-`--mode full` writes `"plots": null`), `--raw`, `--ensemble`, and the
-corpus loaders (a configured dataset path that exists on disk).
+`--ensemble K` (or `training.ensemble_members`) trains a K-member deep
+ensemble (`train/ensemble.py`) in every mode: one vmapped step, the
+evaluation, conformal intervals and plots on the moment-matched combined
+outputs, and `--mode export --ensemble K` an artifact of all K members.
+`--mode visualize` and the last stage of `--mode full` write the plots
+(`viz/report.py`) into `<experiment>/plots`: the static figures where
+matplotlib is installed, else only the interactive HTML dashboard and the
+JSON data export (the summary's `plots` records why).
+
+Not ported yet, and raising NotImplementedError: `--raw` and the corpus
+loaders (a configured dataset path that exists on disk).
 `--raw_dataset` and the unused `--results_dir` are not taken. Where the
 reference's default paths (`/path/to/...`) do not exist, the pipeline takes
 the synthetic fixture, as the reference does.
@@ -116,7 +126,9 @@ class MultimodalDEERPipeline:
                          os.path.join(self.experiment_dir, "configs", "config.yaml"))
 
         self.seed = int(self.config["training"].get("seed", 42))
-        self.model = None
+        self.ensemble_members = int(
+            self.config["training"].get("ensemble_members", 1))
+        self.model = self.params = None
         self.trainer = None
         self.datasets = None
 
@@ -146,9 +158,17 @@ class MultimodalDEERPipeline:
             fusion_type=str(m.get("fusion_type", "hierarchical")),
             moe_experts=int(m.get("moe_experts", 4)),
         )
-        if int(self.config["training"].get("ensemble_members", 1)) > 1:
-            raise NotImplementedError(
-                "deep ensembles are not ported yet (ROADMAP queue 1, item 12)")
+        if self.ensemble_members > 1:
+            from tpu_deer_torch.train.ensemble import create_deer_ensemble
+
+            self.model, self.params = create_deer_ensemble(
+                self.model_config, n_members=self.ensemble_members,
+                seed=self.seed, device=self.device)
+            n_params = sum(v.numel() for v in self.params.values())
+            logger.info(f"deep ensemble created: {self.ensemble_members} "
+                        f"members, {n_params:,} total parameters "
+                        f"({n_params // self.ensemble_members:,} per member)")
+            return self.model
         self.model = create_complete_deer_model(self.model_config, seed=self.seed,
                                                 device=self.device)
         logger.info(f"model created: {count_parameters(self.model):,} parameters")
@@ -218,9 +238,16 @@ class MultimodalDEERPipeline:
         )
         steps = sum(len(d) // self.training_config.batch_size
                     for d in self.datasets["train"].values())
-        self.trainer = DEERTrainer(self.model, self.training_config,
-                                   steps_per_epoch=max(1, steps),
-                                   device=self.device)
+        if self.ensemble_members > 1:
+            from tpu_deer_torch.train.ensemble import EnsembleTrainer
+
+            self.trainer = EnsembleTrainer(
+                self.model, self.params, self.training_config,
+                steps_per_epoch=max(1, steps), device=self.device)
+        else:
+            self.trainer = DEERTrainer(self.model, self.training_config,
+                                       steps_per_epoch=max(1, steps),
+                                       device=self.device)
         return self.trainer
 
     # -- stages ----------------------------------------------------------
@@ -243,14 +270,13 @@ class MultimodalDEERPipeline:
 
     def run_evaluation(self) -> dict:
         from tpu_deer_torch.eval.evaluator import DEERModelEvaluator
-        from tpu_deer_torch.models.deer_model import count_parameters
 
         test_sets = self.datasets.get("test") or self.datasets["val"]
         evaluator = DEERModelEvaluator(n_bootstrap=200, seed=self.seed)
         all_results = {}
         for name, ds in test_sets.items():
             res = evaluator.evaluate_model(
-                self.trainer, ds, n_parameters=count_parameters(self.trainer.model))
+                self.trainer, ds, n_parameters=self.trainer.n_parameters)
             all_results[name] = res.to_dict()
             logger.info(f"[{name}] CCC avg {res.ccc_average:.4f} "
                         f"MAE avg {res.mae_average:.4f} ECE {res.ece:.4f}")
@@ -317,8 +343,31 @@ class MultimodalDEERPipeline:
                 json.dump(report, f, indent=2)
 
     def run_visualization(self) -> dict:
-        raise NotImplementedError(
-            "plots are not ported yet (ROADMAP queue 1, item 14)")
+        """The plots of the first test set (`viz/report.py`), with the
+        attention weights of a forward over its first 256 rows (the member
+        mean for an ensemble), into <experiment>/plots."""
+        from tpu_deer_torch.models.deer_model import member_forward
+        from tpu_deer_torch.viz.report import create_comprehensive_report
+
+        test_sets = self.datasets.get("test") or self.datasets["val"]
+        _, ds = next(iter(test_sets.items()))
+        pred = self.trainer.predict(ds)
+        model = self.trainer.model.eval()
+        a, v, t = (torch.from_numpy(np.ascontiguousarray(ds.arrays[k][:256]))
+                   .to(self.device) for k in ("audio", "video", "text"))
+        with torch.no_grad():
+            if self.trainer.n_members > 1:
+                attention = member_forward(
+                    model, self.trainer.params, a, v, t,
+                    lambda out: out["attention_weights"].float()).mean(0)
+            else:
+                attention = model(a, v, t)["attention_weights"].float()
+        return create_comprehensive_report(
+            predictions=pred["mu"], targets=ds.arrays["labels"],
+            uncertainties=pred["uncertainty"],
+            attention_weights=attention.cpu().numpy(),
+            history=self.trainer.history, aleatoric=pred["aleatoric"],
+            epistemic=pred["epistemic"], output_dir=self.path("plots"))
 
     def generate_final_report(self, train_results, eval_results) -> str:
         lines = [
@@ -360,8 +409,7 @@ class MultimodalDEERPipeline:
             self.create_trainer()
             train_results = self.run_training()
             eval_results = self.run_evaluation()
-            logger.info("plots are not ported yet: the summary records "
-                        "\"plots\": null")
+            plots = self.run_visualization()
             report = self.generate_final_report(train_results, eval_results)
         except Exception as e:
             # Write the crash report, then re-raise.
@@ -378,7 +426,7 @@ class MultimodalDEERPipeline:
             "serving_channel": train_results.get("serving_channel", "eabs"),
             "test_results": eval_results,
             "text_backend": getattr(self, "text_backends", {}),
-            "plots": None,
+            "plots": plots,
             "report": report,
             "total_time_s": time.time() - t0,
         }
@@ -396,8 +444,8 @@ class MultimodalDEERPipeline:
 
 
 def run_component_tests(device: DeviceLike = None) -> bool:
-    """--mode test: model forward, DEER loss and NIG math on `device`. The
-    reference's visualization check is skipped: plots are not ported."""
+    """--mode test: model forward, DEER loss and NIG math on `device`, and a
+    training-curve plot (skipped where matplotlib is not installed)."""
     from tpu_deer_torch.core import losses, nig
     from tpu_deer_torch.models.deer_model import (
         DEERModelConfig,
@@ -425,7 +473,21 @@ def run_component_tests(device: DeviceLike = None) -> bool:
         u = nig.nig_uncertainties(p)
         assert bool(torch.all(u["total"] > 0))
         print("NIG math: OK")
-        print("visualization: skipped (plots are not ported)")
+
+        import tempfile
+
+        from tpu_deer_torch.viz.report import NO_MATPLOTLIB, PerformanceVisualizer
+
+        try:
+            with tempfile.TemporaryDirectory() as td:
+                path = PerformanceVisualizer().plot_training_curves(
+                    {"train_loss": [3, 2, 1], "val_ccc": [0.1, 0.2],
+                     "learning_rate": [1e-4] * 3},
+                    save_path=f"{td}/curves.png")
+                assert os.path.exists(path)
+            print("visualization: OK")
+        except ImportError:
+            print(f"visualization: skipped ({NO_MATPLOTLIB})")
     except Exception as e:  # noqa: BLE001 — reported as the mode's failure
         print(f"component test FAILED: {e!r}")
         ok = False
@@ -457,7 +519,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--raw", action="store_true",
                    help="raw-media training (not ported to this CLI yet)")
     p.add_argument("--ensemble", type=int, default=None, metavar="K",
-                   help="a K-member deep ensemble (not ported yet)")
+                   help="train a K-member deep ensemble (all members in one "
+                        "vmapped step; predictions moment-matched, the "
+                        "cross-member disagreement added to the epistemic "
+                        "channel). Equivalent to training.ensemble_members "
+                        "in the config")
     p.add_argument("--platform", choices=sorted(PLATFORMS), default="auto",
                    help="'auto' and 'cuda': the CUDA card, raising without "
                         "one; 'cpu': the CPU")
@@ -483,6 +549,8 @@ def export_model(args, pipeline: "MultimodalDEERPipeline",
     from tpu_deer_torch.export import export_inference
 
     pipeline.create_model()
+    ensemble = pipeline.ensemble_members > 1
+    params = pipeline.params
     serving_channel = "eabs"
     if args.model_path:
         from tpu_deer_torch.train.checkpoint import CheckpointManager
@@ -490,7 +558,9 @@ def export_model(args, pipeline: "MultimodalDEERPipeline",
         ckpt = CheckpointManager(args.model_path)
         step = ("best" if os.path.isdir(os.path.join(args.model_path, "best"))
                 else None)
-        pipeline.model.load_state_dict(ckpt.restore_params(step))
+        params = ckpt.restore_params(step)
+        if not ensemble:
+            pipeline.model.load_state_dict(params)
         serving_channel = ckpt.metadata(step)["metrics"].get(
             "serving_channel", "eabs")
     ood_det = None
@@ -502,7 +572,8 @@ def export_model(args, pipeline: "MultimodalDEERPipeline",
     manifest = export_inference(
         pipeline.model, out_dir, platforms=(device.type,), quantize=args.int8,
         ood_detector=ood_det, ood_fpr=args.ood_fpr,
-        serving_channel=serving_channel)
+        serving_channel=serving_channel, ensemble=ensemble,
+        params=params if ensemble else None)
     return {"export_dir": out_dir,
             **{k: manifest[k] for k in ("buckets", "platforms", "n_params",
                                         "quantized", "ensemble_members",
@@ -513,14 +584,9 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
-    unported = {
-        "--mode visualize (plots; ROADMAP queue 1, item 14)": args.mode == "visualize",
-        "--raw (ROADMAP queue 1, item 6)": args.raw,
-        "--ensemble (ROADMAP queue 1, item 12)": args.ensemble is not None,
-    }
-    for what, given in unported.items():
-        if given:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if args.raw:
+        raise NotImplementedError(
+            "--raw (ROADMAP queue 1, item 6) is not ported yet")
     device = resolve_device(PLATFORMS[args.platform])
     logger.info("device: %s", device)
 
@@ -534,6 +600,8 @@ def main(argv=None) -> int:
         overrides["training.batch_size"] = args.batch_size
     if args.learning_rate is not None:
         overrides["training.learning_rate"] = args.learning_rate
+    if args.ensemble is not None:
+        overrides["training.ensemble_members"] = args.ensemble
 
     pipeline = MultimodalDEERPipeline(
         config_path=args.config, output_dir=args.output_dir,
@@ -554,9 +622,12 @@ def main(argv=None) -> int:
     if args.mode == "train":
         results = pipeline.run_training()
         print(f"best val CCC: {results['best_val_ccc']:.4f}")
+        return 0
+    if args.model_path:
+        pipeline.load_checkpoint(args.model_path)
+    if args.mode == "visualize":
+        print(json.dumps(pipeline.run_visualization(), indent=2))
     else:  # evaluate
-        if args.model_path:
-            pipeline.load_checkpoint(args.model_path)
         print(json.dumps(pipeline.run_evaluation(), indent=2))
     return 0
 

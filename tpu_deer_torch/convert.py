@@ -197,3 +197,63 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             arr = arr.transpose(np.argsort(_KERNEL_AXES[arr.ndim]))
         put(path[:-1] + (leaf,), arr)
     return tree
+
+
+# -- member-stacked trees (deep ensembles) ------------------------------------
+
+def _unstack(tree: Mapping, k: int) -> dict:
+    """Member `k` of a tree whose leaves carry a leading member axis; a leaf
+    of shape [0] (the quantizer's empty scale, which is not stacked) is the
+    same for every member."""
+    return {key: _unstack(v, k) if isinstance(v, Mapping)
+            else (np.asarray(v) if np.shape(v) == (0,) else np.asarray(v)[k])
+            for key, v in tree.items()}
+
+
+def _members(tree: Mapping) -> int:
+    for v in tree.values():
+        n = _members(v) if isinstance(v, Mapping) else (
+            None if np.shape(v) == (0,) else np.shape(v)[0])
+        if n is not None:
+            return n
+    return None
+
+
+def _stack_state(dicts: list) -> dict[str, torch.Tensor]:
+    return {k: (dicts[0][k] if dicts[0][k].shape == (0,)
+                else torch.stack([d[k] for d in dicts]))
+            for k in dicts[0]}
+
+
+def stacked_flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """A member-stacked flax tree (every leaf [K, ...], as the reference's
+    `create_deer_ensemble` builds it) → a state_dict of [K, ...] tensors in
+    the port's layout (a Linear weight [K, out, in])."""
+    return _stack_state([flax_to_state_dict(_unstack(params, k))
+                         for k in range(_members(params))])
+
+
+def state_dict_to_stacked_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of `stacked_flax_to_state_dict`."""
+    n = next(iter(state_dict.values())).shape[0]
+    trees = [state_dict_to_flax({k: v[i] for k, v in state_dict.items()})
+             for i in range(n)]
+
+    def stack(nodes):
+        first = nodes[0]
+        return {key: stack([n[key] for n in nodes]) if isinstance(first[key], Mapping)
+                else np.stack([n[key] for n in nodes]) for key in first}
+
+    return stack(trees)
+
+
+def stacked_flax_quantized_to_state_dict(q_tree: Mapping, scale_tree: Mapping
+                                         ) -> tuple[dict, dict]:
+    """The reference's `quantize_tree(..., member_stacked=True)` output →
+    the port's: int8 kernels [K, in, out] → [K, out, in], scales [K, out],
+    the empty scale of a leaf that is not quantized unchanged."""
+    pairs = [flax_quantized_to_state_dict(_unstack(q_tree, k),
+                                          _unstack(scale_tree, k))
+             for k in range(_members(q_tree))]
+    return (_stack_state([q for q, _ in pairs]),
+            _stack_state([s for _, s in pairs]))

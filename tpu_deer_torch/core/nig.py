@@ -130,3 +130,42 @@ def kl_regularizer_v2(p: NIGParams, eps: float = 1e-6) -> torch.Tensor:
     """v2: (alpha - 1)^2 + 0.1 log(beta + eps)^2."""
     return torch.square(p.alpha - 1.0) + 0.1 * torch.square(
         torch.log(p.beta + eps))
+
+
+# Outputs whose member mean is the combined output as it is.
+_MEAN_KEYS = ("attention_weights", "fused", "loss")
+
+
+def combine_members(member: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Moment matching over a leading member (or MC-sample) axis, as the
+    reference combines a deep ensemble's members and MC-dropout samples
+    (Lakshminarayanan et al., 2017, adapted to NIG members). With the
+    disagreement d = Var_k(mu_k) (population variance):
+
+      mu = mean mu_k;  aleatoric = mean aleatoric_k;
+      epistemic = mean epistemic_k + d;  uncertainty = aleatoric + epistemic;
+      calibrated_uncertainty = mean calibrated_k + d;
+      eabs / expected_abs_error = sqrt(mean(eabs_k)^2 + 2/pi d)
+        (the member E|err| forecasts combined in variance space);
+      attention_weights, fused, loss: the member mean.
+
+    `member` holds `mu`, `aleatoric` and `epistemic` and any of the others;
+    the result has the same keys. Every path that combines members
+    (`EnsembleTrainer`, `predict_mc_dropout`, `InferenceEngine`, the
+    exported programs, `add_teacher_targets`) calls this."""
+    mu = member["mu"]
+    d = torch.var(mu, dim=0, correction=0)
+    aleatoric = member["aleatoric"].mean(0)
+    epistemic = member["epistemic"].mean(0) + d
+    out = {"mu": mu.mean(0), "aleatoric": aleatoric, "epistemic": epistemic,
+           "uncertainty": aleatoric + epistemic}
+    if "calibrated_uncertainty" in member:
+        out["calibrated_uncertainty"] = member["calibrated_uncertainty"].mean(0) + d
+    for key in ("eabs", "expected_abs_error"):
+        if key in member:
+            out[key] = torch.sqrt(torch.square(member[key].mean(0))
+                                  + 2.0 / math.pi * d)
+    for key in _MEAN_KEYS:
+        if key in member:
+            out[key] = member[key].mean(0)
+    return out

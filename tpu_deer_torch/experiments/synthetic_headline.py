@@ -22,9 +22,11 @@ float32), with TF32 and cuBLAS's bf16 reduced-precision reductions off.
 Differences from the reference: `--platform` picks the card (`cuda`, the
 default; it raises without one) or the CPU; results go to
 `results_torch/RESULTS_synthetic_h100` (`_seed<k>` added for a non-zero
-seed), and the payload's `platform` names the card and its power limit.
-`--figures` and `--figures_from` raise: the plots are not ported yet
-(ROADMAP queue 1, entry 5).
+seed), the payload's `platform` names the card and its power limit, and
+`--figures_from` without `--figures` renders into
+`results_torch/figures_headline`. `--figures DIR` renders the plots
+(`viz/report.py`; where matplotlib is not installed, the interactive
+dashboard and the JSON data export only), as the reference does.
 """
 
 from __future__ import annotations
@@ -40,6 +42,35 @@ import numpy as np
 import torch
 
 DEFAULT_OUT = "results_torch/RESULTS_synthetic_h100"
+DEFAULT_FIGURES = "results_torch/figures_headline"
+
+
+def _render_figures(pred, labels, history, figures_dir, title_suffix=""):
+    """The plot set, the summary figure and the interactive dashboard from
+    a run's predictions, as the reference renders them: the reliability and
+    scatter plots read the deployable calibrated uncertainty, the
+    decomposition the raw aleatoric and epistemic components."""
+    from tpu_deer_torch.viz.html_report import create_interactive_report
+    from tpu_deer_torch.viz.report import (
+        create_comprehensive_report,
+        plot_summary_figure,
+    )
+
+    deployable = pred["calibrated_uncertainty"]
+    paths = create_comprehensive_report(
+        pred["mu"], labels, deployable, history=history,
+        aleatoric=pred["aleatoric"], epistemic=pred["epistemic"],
+        output_dir=figures_dir)
+    if "static" not in paths:
+        paths["summary"] = plot_summary_figure(
+            pred["mu"], labels, deployable, history=history,
+            save_path=os.path.join(figures_dir, "summary.png"))
+    paths["interactive"] = create_interactive_report(
+        pred["mu"], labels, deployable, history=history,
+        output_path=os.path.join(figures_dir, "interactive_report.html"),
+        title=f"Multimodal DEER — headline run {title_suffix}")
+    print("figures:", ", ".join(sorted(paths)))
+    return paths
 
 
 def card_name(device: torch.device) -> str:
@@ -86,9 +117,16 @@ def main(argv=None) -> int:
     p.add_argument("--figures_from", default=None, metavar="NPZ")
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
     args = p.parse_args(argv)
-    if args.figures or args.figures_from:
-        raise NotImplementedError("the plots are not ported yet (ROADMAP queue "
-                                  "1, entry 5)")
+    if args.figures_from:
+        saved = np.load(args.figures_from)
+        history = ({"train_loss": list(saved["history_train_loss"]),
+                    "val_ccc": list(saved["history_val_ccc"])}
+                   if "history_train_loss" in saved.files else None)
+        _render_figures(
+            {k: saved[k] for k in saved.files if k != "labels"},
+            saved["labels"], history, args.figures or DEFAULT_FIGURES,
+            title_suffix="(from saved predictions)")
+        return 0
 
     from tpu_deer_torch.core.metrics import ece_np
     from tpu_deer_torch.data.pipeline import ArrayDataset
@@ -224,6 +262,9 @@ def main(argv=None) -> int:
              history_val_ccc=np.asarray(results["history"]["val_ccc"],
                                         dtype=np.float64),
              **pred)
+    if args.figures:
+        _render_figures(pred, labels, results["history"], args.figures,
+                        title_suffix=f"({platform}, CCC {ev.ccc_average:.3f})")
     print(json.dumps(payload["test"]["ccc"], indent=2))
     print("uncertainty-error r:", payload["uncertainty"])
     print("written:", args.out + ".md")

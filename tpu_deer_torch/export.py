@@ -12,9 +12,14 @@ and the artifact):
     kernels, the rest as they are) and `scale/<name>` (a float32 per-channel
     scale, empty where nothing was quantized) from
     `ops.quantization.quantize_tree`, with the dequantize inside the
-    program; with an OOD detector, its `ood/mean` and `ood/whitener`;
-  * a JSON manifest with the model's widths, the buckets, the platforms and
-    the outputs' names.
+    program; with an OOD detector, its `ood/mean` and `ood/whitener`; a
+    deep ensemble's (`ensemble=True`) stacked [K, ...] members, whose
+    forwards the program vmaps (`torch.func.vmap` over the member axis) and
+    combines by moment matching (`core/nig.py:combine_members`); the
+    exported program is lowered to the ATen dialect, where the member axis
+    is a batch dimension of its GEMMs;
+  * a JSON manifest with the model's widths, the buckets, the platforms,
+    the outputs' names and `ensemble_members`.
 
 The manifest's format is "tpu_deer_torch.export.v1". The reference's
 artifacts ("tpu_deer.export.v1") are StableHLO, which PyTorch cannot run:
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from tpu_deer_torch.core.nig import nig_expected_abs_error
+from tpu_deer_torch.core.nig import combine_members, nig_expected_abs_error
 from tpu_deer_torch.device import DeviceLike, resolve_device
 from tpu_deer_torch.eval.ood import (
     input_norm_features_device,
@@ -59,15 +64,27 @@ OUTPUT_NAMES = (
 
 class _Program(torch.nn.Module):
     """(params, audio, video, text) → OUTPUT_NAMES (+ ood_score): the
-    deterministic forward with every weight taken from `params`. The model
-    is held outside the module tree, so the export lifts none of its
-    tensors into the program."""
+    deterministic forward with every weight taken from `params` (an
+    ensemble's: every member's, combined). The model is held outside the
+    module tree, so the export lifts none of its tensors into the
+    program."""
 
-    def __init__(self, model, quantized: bool, ood: bool):
+    def __init__(self, model, quantized: bool, ood: bool, ensemble: bool):
         super().__init__()
         self._model = (model.eval(),)
         self.quantized = quantized
         self.ood = ood
+        self.ensemble = ensemble
+
+    def _outputs(self, out: dict) -> dict:
+        # Imported here: an artifact is served without the model code.
+        from tpu_deer_torch.models.deer_model import uncertainty_outputs
+
+        names = self._model[0].config.dim_names
+        res = uncertainty_outputs(out, names)
+        res["expected_abs_error"] = torch.cat(
+            [nig_expected_abs_error(out[f"{n}_params"]) for n in names], dim=-1)
+        return res
 
     def forward(self, params: dict, audio, video, text):
         model = self._model[0]
@@ -78,11 +95,10 @@ class _Program(torch.nn.Module):
         else:
             weights = {k: v for k, v in params.items()
                        if not k.startswith("ood/")}
-        out = functional_call(model, weights, (audio, video, text))
-        eabs = torch.cat([nig_expected_abs_error(out[f"{n}_params"])
-                          for n in model.config.dim_names], dim=-1)
-        res = (out["mu_all"], out["uncertainty_all"],
-               out["calibrated_uncertainty"], eabs)
+        one = lambda w: self._outputs(functional_call(model, w, (audio, video, text)))
+        out = (combine_members(torch.func.vmap(one)(weights)) if self.ensemble
+               else one(weights))
+        res = tuple(out[k] for k in OUTPUT_NAMES)
         if self.ood:
             res += (mahalanobis_score_device(
                 input_norm_features_device(audio, video, text),
@@ -113,6 +129,7 @@ def export_inference(
     ood_detector=None,
     ood_fpr: float = 0.01,
     serving_channel: str = "eabs",
+    params: Optional[dict] = None,
 ) -> dict:
     """Export `model`'s (a CompleteDEERModel with its weights)
     deterministic forward for each batch bucket; returns the manifest.
@@ -125,11 +142,12 @@ def export_inference(
     `ood_detector` (a fitted MahalanobisOOD in "input_norm" space) adds an
     `ood_score` output, and the manifest records the `ood_fpr` threshold
     that ExportedEngine uses for `is_ood`; fused-space detectors are
-    refused, as the reference refuses them. Ensembles are not ported.
+    refused, as the reference refuses them. `ensemble=True` exports a deep
+    ensemble: `model` gives the structure and `params` its stacked members
+    ({state_dict name: [K, ...]}; int8 with per-member scales).
     """
-    if ensemble:
-        raise NotImplementedError(
-            "ensemble export is not ported yet (ROADMAP queue 1, item 12)")
+    if ensemble and not params:
+        raise ValueError("ensemble=True needs the stacked member params")
     if ood_detector is not None and ood_detector.space != "input_norm":
         raise ValueError(
             "export supports 'input_norm'-space OOD detectors only; got "
@@ -144,9 +162,11 @@ def export_inference(
     platforms = _platforms(platforms)
     os.makedirs(output_dir, exist_ok=True)
     cfg = model.config
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    state = {k: v.detach().cpu()
+             for k, v in (params if ensemble else model.state_dict()).items()}
+    members = len(next(iter(state.values()))) if ensemble else 1
     if quantize:
-        q, scales = quantize_tree(state)
+        q, scales = quantize_tree(state, member_stacked=ensemble)
         flat = {**{f"q/{k}": v for k, v in q.items()},
                 **{f"scale/{k}": v for k, v in scales.items()}}
     else:
@@ -162,13 +182,20 @@ def export_inference(
     # Traced on the CPU (a model on the card is copied there for it); the
     # program keeps no example inputs, which would hold the parameters.
     shell = type(model)(cfg)
-    shell.load_state_dict(state)
-    program = _Program(shell, quantize, ood_detector is not None)
+    if not ensemble:
+        shell.load_state_dict(state)
+    program = _Program(shell, quantize, ood_detector is not None, ensemble)
     artifacts = {}
     for b in sorted(batch_buckets):
         example = tuple(torch.zeros((b, d))
                         for d in (cfg.audio_dim, cfg.video_dim, cfg.text_dim))
         ep = torch.export.export(program, (flat, *example), strict=False)
+        if ensemble:
+            # Retraced to the ATen dialect, where vmap has batched every op
+            # over the member axis (K-times batched GEMMs): the pre-dispatch
+            # graph keeps functorch calls that some torch releases cannot
+            # serialize.
+            ep = ep.run_decompositions({})
         ep.example_inputs = None
         name = f"forward_b{b}.pt2"
         torch.export.save(ep, os.path.join(output_dir, name))
@@ -191,7 +218,7 @@ def export_inference(
         "artifacts": artifacts,
         "quantized": bool(quantize),
         "serving_channel": serving_channel,
-        "ensemble_members": 1,
+        "ensemble_members": members,
         "n_params": int(n_params),
     }
     if ood_detector is not None:

@@ -20,6 +20,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.func import functional_call, vmap
 
 from tpu_deer_torch.device import DeviceLike, resolve_device
 from tpu_deer_torch.models.attention import UncertaintyAwareAttention
@@ -143,3 +144,30 @@ def create_complete_deer_model(config: DEERModelConfig | None = None,
     init_flax_style_(model, generator)
     model.calibration.reset_parameters(generator)
     return model.to(device).eval()
+
+
+def uncertainty_outputs(out: dict, dim_names: Sequence[str]) -> dict:
+    """mu, the total, calibrated, aleatoric and epistemic uncertainty
+    ([B, dims] each) from the model's outputs `out`: what the trainer's
+    predictions, the serving engines and the teacher targets read (and
+    `core/nig.py:combine_members` combines over members)."""
+    cat = lambda key: torch.cat([out[f"{n}_{key}"] for n in dim_names], -1)
+    return {"mu": out["mu_all"], "uncertainty": out["uncertainty_all"],
+            "calibrated_uncertainty": out["calibrated_uncertainty"],
+            "aleatoric": cat("aleatoric_uncertainty"),
+            "epistemic": cat("epistemic_uncertainty")}
+
+
+def structure(config: DEERModelConfig) -> CompleteDEERModel:
+    """The flagship's module on the meta device: its structure, no weights
+    (forwards pass them with `functional_call`)."""
+    with torch.device("meta"):
+        return CompleteDEERModel(config).eval()
+
+
+def member_forward(model: CompleteDEERModel, params: dict, audio, video, text,
+                   fn=lambda out: out, randomness: str = "error"):
+    """`fn` of the model's outputs for every member of the stacked `params`,
+    stacked on a leading member axis: one vmapped forward."""
+    return vmap(lambda p: fn(functional_call(model, p, (audio, video, text))),
+                randomness=randomness)(params)

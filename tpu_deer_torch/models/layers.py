@@ -122,13 +122,19 @@ class _Logistic(torch.autograd.Function):
     `torch.sigmoid` rounds once and differs in ~1/3 of bf16 values);
     backward JAX's derivative rule g·(y·(1 − y)), op by op. Autograd
     through the forward's ops would give 0·inf = NaN below x ≈ −88.7,
-    where exp(−x) overflows."""
+    where exp(−x) overflows. The forward takes no ctx (`setup_context`
+    saves y), so that `torch.func.vmap` runs it under its generated rule
+    (ensemble members, MC-dropout samples)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        y = 1.0 / (1.0 + torch.exp(-x))
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return 1.0 / (1.0 + torch.exp(-x))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

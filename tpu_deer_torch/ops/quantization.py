@@ -8,9 +8,11 @@ Pallas kernel.
 
 The leaves quantized are exactly the reference's: flax's 2-D `*kernel`
 leaves whose contraction (input) width is at least 8. In the state_dict an
-nn.Linear weight is [out, in], so its scale reduces over axis 1; a raw
-`*_kernel` parameter (the calibration layer's) keeps flax's [in, out] and
-reduces over axis 0. Embeddings, norms and biases pass through. Rounding is
+nn.Linear weight is [out, in], so its scale reduces over the last axis; a
+raw `*_kernel` parameter (the calibration layer's) keeps flax's [in, out]
+and reduces over the one before. A deep ensemble's entries carry a leading
+member axis, and its scales are [K, out]. Embeddings, norms and biases pass
+through. Rounding is
 half to even (`torch.round`, as `np.round`), computed on the host in
 float32 as the reference computes it in numpy.
 """
@@ -30,33 +32,33 @@ from tpu_deer_torch.kernels.quantize_int8 import (  # noqa: F401 — the API
 )
 
 
-def contraction_axis(key: str, tensor: torch.Tensor) -> Optional[int]:
-    """The axis state_dict entry `key` contracts over when it is a
-    quantizable Dense kernel, else None."""
-    if tensor.dim() != 2 or not flax_leaf(key, 2).endswith("kernel"):
+def contraction_axis(key: str, tensor: torch.Tensor,
+                     member_stacked: bool = False) -> Optional[int]:
+    """The (negative) axis state_dict entry `key` contracts over when it is
+    a quantizable Dense kernel, else None. `member_stacked`: every entry
+    carries a leading member axis, so a kernel is 3-D."""
+    if tensor.dim() != 2 + member_stacked or not flax_leaf(key, 2).endswith("kernel"):
         return None
-    axis = 1 if key.endswith(".weight") else 0
+    axis = -1 if key.endswith(".weight") else -2
     return axis if tensor.shape[axis] >= 8 else None
 
 
 def _out_view(key: str, scale: torch.Tensor) -> torch.Tensor:
-    """A [out] scale shaped to broadcast against its kernel."""
-    return scale[:, None] if key.endswith(".weight") else scale[None, :]
+    """A [..., out] scale shaped to broadcast against its kernel."""
+    return scale.unsqueeze(-1) if key.endswith(".weight") else scale.unsqueeze(-2)
 
 
 def quantize_tree(state_dict: dict, member_stacked: bool = False
                   ) -> tuple[dict, dict]:
     """state_dict → (q, scales): quantizable kernels become int8 with a
     float32 [out] scale; other entries pass through (scale: an empty
-    tensor). Results are on the CPU."""
-    if member_stacked:
-        raise NotImplementedError(
-            "member-stacked (ensemble) trees are not ported yet (ROADMAP "
-            "queue 1, item 12)")
+    tensor). `member_stacked=True` declares a deep ensemble's state_dict,
+    every entry [K, ...] (`train/ensemble.py`): its [K, out, in] kernels
+    take per-member, per-channel [K, out] scales. Results are on the CPU."""
     q, scales = {}, {}
     for key, tensor in state_dict.items():
         t = tensor.detach().cpu()
-        axis = contraction_axis(key, t)
+        axis = contraction_axis(key, t, member_stacked)
         if axis is None:
             q[key], scales[key] = t, torch.zeros(0)
             continue
@@ -70,7 +72,8 @@ def quantize_tree(state_dict: dict, member_stacked: bool = False
 
 def dequantize_tree_device(q: dict, scales: dict, dtype=None) -> dict:
     """(q, scales) → float weights where they lie: q · scale on each
-    quantized kernel (the forward of the int8 engine runs this)."""
+    quantized kernel, plain or member-stacked (the forward of the int8
+    engine runs this)."""
     dtype = dtype or torch.float32
     return {key: (v if scales[key].numel() == 0
                   else v.to(dtype) * _out_view(key, scales[key]).to(dtype))

@@ -16,8 +16,15 @@ device, and each forward dequantizes them (q · scale, plain torch, as the
 reference's `dequantize_tree_device` inside its jitted forward) into the
 weights `torch.func.functional_call` runs the model with; the engine keeps
 no float copy of them. `from_checkpoint` loads a trainer's checkpoint and
-serves the channel its metadata selected. Ensembles are not ported yet and
-raise NotImplementedError.
+serves the channel its metadata selected.
+
+`ensemble=True` serves a deep ensemble's stacked K-member parameters
+(`train/ensemble.py`; `from_checkpoint(..., ensemble_members=K)`): the
+member forwards are vmapped inside the one forward (K-times batched GEMMs),
+float or int8 (per-member, per-channel scales), and combined by moment
+matching (`core/nig.py:combine_members`), the formulas training-side
+evaluation uses; `attention_weights` and the fused features an OOD
+detector reads are the member means.
 
 On the card each padded bucket runs as a CUDA graph of the whole forward
 (`graphs.GraphedCall`: the model, E|y - mu|, the int8 dequantize and the
@@ -36,14 +43,20 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from tpu_deer_torch.core.nig import nig_expected_abs_error
+from tpu_deer_torch.core.nig import combine_members, nig_expected_abs_error
 from tpu_deer_torch.device import DeviceLike, resolve_device
 from tpu_deer_torch.eval.ood import (
     input_norm_features_device,
     mahalanobis_score_device,
 )
 from tpu_deer_torch.graphs import BucketGraphs, bucketed_predict
-from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
+from tpu_deer_torch.models.deer_model import (
+    CompleteDEERModel,
+    DEERModelConfig,
+    member_forward,
+    structure,
+    uncertainty_outputs,
+)
 from tpu_deer_torch.ops.quantization import dequantize_tree_device, quantize_tree
 
 DEFAULT_BUCKETS = (1, 8, 64, 256)
@@ -61,6 +74,7 @@ class InferenceEngine:
         serving_channel: str = "eabs",
         device: DeviceLike = None,
         graphs: bool = True,
+        params: Optional[dict] = None,
     ):
         """Serve `model` (its weights, moved to `device`: None = the CUDA
         card). serving_channel names the uncertainty deployment reads:
@@ -72,10 +86,9 @@ class InferenceEngine:
         quantize_weights: serve int8 Dense kernels (the module's own weights
         are then not moved or kept). graphs: CUDA graphs where the device is
         the card (the CPU is always eager); False runs eagerly on the card,
-        to check the graphs."""
-        if ensemble:
-            raise NotImplementedError(
-                "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
+        to check the graphs. ensemble: `params` are a deep ensemble's stacked
+        members ({state_dict name: [K, ...]}) and `model` gives only the
+        structure."""
         if serving_channel not in ("calibrated", "eabs"):
             raise ValueError(
                 f"serving_channel must be 'calibrated' or 'eabs', "
@@ -85,19 +98,28 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.graphs = graphs and self.device.type == "cuda"
         self.quantized = bool(quantize_weights)
-        self.quantized_weights = None
+        self.ensemble = bool(ensemble)
+        self.quantized_weights = self.params = None
+        if self.ensemble:
+            if not params or len({v.shape[0] for v in params.values()}) != 1:
+                raise ValueError(
+                    "ensemble=True expects stacked member params from "
+                    "create_deer_ensemble() (a shared leading member axis)")
+            state = {k: v.detach() for k, v in params.items()}
+        elif self.quantized:
+            state = model.state_dict()
         if self.quantized:
-            q, scales = quantize_tree(model.state_dict())
+            q, scales = quantize_tree(state, member_stacked=self.ensemble)
             self.quantized_weights = (
                 {k: v.to(self.device) for k, v in q.items()},
                 {k: v.to(self.device) for k, v in scales.items()})
-            # The module's structure without weights: every forward passes
-            # the dequantized ones.
-            with torch.device("meta"):
-                model = CompleteDEERModel(model.config)
-            self.model = model.eval()
-        else:
-            self.model = model.to(self.device).eval()
+        elif self.ensemble:
+            self.params = {k: v.to(self.device) for k, v in state.items()}
+        # Without weights of its own where every forward passes them (the
+        # dequantized ones, or the members').
+        self.model = (structure(model.config)
+                      if self.quantized or self.ensemble
+                      else model.to(self.device).eval())
         self.buckets = sorted(batch_buckets)
         cfg = self.model.config
         self.bucket_graphs = BucketGraphs(
@@ -118,50 +140,56 @@ class InferenceEngine:
                         ensemble_members: int = 1, **kwargs) -> "InferenceEngine":
         """Serve the parameters of a DEERTrainer checkpoint (step "best", None
         for the latest, or a number) with the serving channel its metadata
-        recorded ("eabs" where it recorded none)."""
+        recorded ("eabs" where it recorded none). `ensemble_members=K`
+        serves a stacked K-member checkpoint (an EnsembleTrainer's, `cli
+        --ensemble K`) as one ensemble."""
         from tpu_deer_torch.train.checkpoint import CheckpointManager
 
-        if ensemble_members > 1:
-            raise NotImplementedError(
-                "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
-        model = CompleteDEERModel(config or DEERModelConfig())
+        config = config or DEERModelConfig()
         ckpt = CheckpointManager(checkpoint_dir)
-        model.load_state_dict(ckpt.restore_params(step))
-        if "serving_channel" not in kwargs:
-            kwargs["serving_channel"] = ckpt.metadata(step)["metrics"].get(
-                "serving_channel", "eabs")
+        state = ckpt.restore_params(step)
+        metrics = ckpt.metadata(step)["metrics"]
+        recorded = int(metrics.get("ensemble_members", 1))
+        if recorded != ensemble_members:
+            raise ValueError(
+                f"{checkpoint_dir} holds {recorded} member(s), not "
+                f"ensemble_members={ensemble_members}")
+        kwargs.setdefault("serving_channel", metrics.get("serving_channel", "eabs"))
+        if ensemble_members > 1:
+            return cls(structure(config), ensemble=True, params=state, **kwargs)
+        model = CompleteDEERModel(config)
+        model.load_state_dict(state)
         return cls(model, **kwargs)
 
-    def _forward(self, audio, video, text) -> dict[str, torch.Tensor]:
-        if self.quantized:
-            out = functional_call(
-                self.model, dequantize_tree_device(*self.quantized_weights),
-                (audio, video, text))
-        else:
-            out = self.model(audio, video, text)
+    def _outputs(self, out: dict) -> dict[str, torch.Tensor]:
         names = self.model.config.dim_names
-        cat = lambda key: torch.cat([out[f"{n}_{key}"] for n in names], dim=-1)
-        res = {
-            "mu": out["mu_all"],
-            "uncertainty": out["uncertainty_all"],
-            "calibrated_uncertainty": out["calibrated_uncertainty"],
-            "aleatoric": cat("aleatoric_uncertainty"),
-            "epistemic": cat("epistemic_uncertainty"),
-            "expected_abs_error": torch.cat(
-                [nig_expected_abs_error(out[f"{n}_params"]) for n in names],
-                dim=-1,
-            ),
-            # In the compute dtype (bf16 in the reference's bf16 mode); numpy
-            # has no bfloat16, so it leaves as float32 (exact).
-            "attention_weights": out["attention_weights"].float(),
-        }
+        res = uncertainty_outputs(out, names)
+        res["expected_abs_error"] = torch.cat(
+            [nig_expected_abs_error(out[f"{n}_params"]) for n in names], dim=-1)
+        # In the compute dtype (bf16 in the reference's bf16 mode); numpy has
+        # no bfloat16, so it leaves as float32 (exact).
+        res["attention_weights"] = out["attention_weights"].float()
+        # The fused features stay in the compute dtype: the OOD score
+        # promotes them to float32 against the detector's mean, as jnp's
+        # promotion does in the reference.
+        res["fused"] = out["fused_features"]
+        return res
+
+    def _forward(self, audio, video, text) -> dict[str, torch.Tensor]:
+        weights = (dequantize_tree_device(*self.quantized_weights)
+                   if self.quantized else self.params)
+        if self.ensemble:
+            res = combine_members(member_forward(
+                self.model, weights, audio, video, text, self._outputs))
+        elif weights is not None:
+            res = self._outputs(functional_call(self.model, weights,
+                                                (audio, video, text)))
+        else:
+            res = self._outputs(self.model(audio, video, text))
+        fused = res.pop("fused")
         if self._ood is not None:
-            # The fused features stay in the compute dtype: the score
-            # promotes them to float32 against the detector's mean, as
-            # jnp's promotion does in the reference.
             feats = (input_norm_features_device(audio, video, text)
-                     if self._ood_space == "input_norm"
-                     else out["fused_features"])
+                     if self._ood_space == "input_norm" else fused)
             res["ood_score"] = mahalanobis_score_device(feats, *self._ood)
         return res
 

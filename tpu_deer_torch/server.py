@@ -37,10 +37,14 @@ coalesced by a dispatcher thread into waves of up to `max_batch` rows.
 A service is built from a trainer's checkpoint
 (`PredictionService.from_checkpoint`, with live sessions where
 `stream_slots` is given) or from an exported artifact (`from_exported`,
-`tpu_deer_torch.export`). On the card every serving bucket and the stream
-tick replay CUDA graphs, captured at start-up unless `--no_warmup`:
+`tpu_deer_torch.export`). `--ensemble K` serves a stacked K-member
+checkpoint (`cli --ensemble K`) as one ensemble; it needs `--checkpoint`
+and takes no `--stream_slots` (a session streams one parameter set). On
+the card every serving bucket and the stream tick replay CUDA graphs,
+captured at start-up unless `--no_warmup`:
 
     python -m tpu_deer_torch.server --checkpoint <models dir> [--stream_slots 64]
+    python -m tpu_deer_torch.server --checkpoint <models dir> --ensemble 4
     python -m tpu_deer_torch.server --exported <export dir>
     python -m tpu_deer_torch.server --exported <export dir> --platform cpu
 """
@@ -559,6 +563,10 @@ class PredictionService:
                                                  **kwargs)
         streaming = None
         if stream_slots:
+            if engine.ensemble:
+                raise ValueError(
+                    "streaming sessions serve a single parameter set — pass a "
+                    "single-member checkpoint (or member_params(k))")
             if config.audio_dim != 84:
                 raise ValueError(
                     "streaming sessions need the 84-d audio feature model "
@@ -829,7 +837,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "results/conformal.json); /predict responses gain "
                         "interval_lower/interval_upper with 1-alpha coverage")
     p.add_argument("--ensemble", type=int, default=1, metavar="K",
-                   help="a stacked K-member checkpoint (not ported yet)")
+                   help="serve a stacked K-member deep-ensemble checkpoint "
+                        "(from cli --ensemble K): members vmapped in one "
+                        "forward, combined by moment matching")
     p.add_argument("--ood",
                    help="Mahalanobis OOD detector .npz (the CLI evaluate "
                         "stage's results/ood_detector.npz); /predict "
@@ -843,9 +853,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_arg_parser()
     args = p.parse_args(argv)
-    if args.ensemble > 1:
-        raise NotImplementedError(
-            "ensemble serving is not ported yet (ROADMAP queue 1, item 12)")
+    if args.ensemble > 1 and not args.checkpoint:
+        p.error("--ensemble requires --checkpoint. Exported ensemble artifacts "
+                "(cli --mode export --ensemble K) already hold the members: "
+                "serve them with --exported")
+    if args.ensemble > 1 and args.stream_slots:
+        p.error("--stream_slots serves a single parameter set; serve one "
+                "ensemble member for streaming")
     if args.ood and not args.checkpoint:
         p.error("--ood requires --checkpoint (an exported program is fixed; "
                 "re-export with the detector to serve OOD scores)")
@@ -866,7 +880,8 @@ def main(argv=None) -> int:
                           ood_fpr=args.ood_fpr)
         service = PredictionService.from_checkpoint(
             args.checkpoint, stream_slots=args.stream_slots,
-            stream_warmup=not args.no_warmup, device=device, **mb, **ood_kw)
+            stream_warmup=not args.no_warmup, device=device,
+            ensemble_members=args.ensemble, **mb, **ood_kw)
     else:
         service = PredictionService.from_exported(args.exported,
                                                   device=device, **mb)

@@ -62,11 +62,20 @@ the gradients land in the float32 parameters (explicit casts, not
 `torch.autocast`, whose LayerNorm and softmax return float32 and whose
 weight-cast cache must be off in a capture).
 
+Distillation: a dataset with `teacher_mu` and `teacher_unc` arrays
+(`train/distill.py:add_teacher_targets`) adds distill_mu_weight ·
+MSE(mu, teacher_mu) and distill_unc_weight · MSE(log(unc + 1e-4),
+log(teacher_unc + 1e-4)) to the loss, on the per-step and the fused path
+(staged only where every dataset of the epoch has them). `predict_mc_dropout`
+runs S dropout-on forwards of each batch as one `torch.func.vmap` (each
+sample its own masks) and combines them by moment matching
+(`core/nig.py:combine_members`). `train/ensemble.py:EnsembleTrainer` is
+this trainer over a stacked K-member parameter set.
+
 Knobs that only pick how XLA executes, or belong to later work, raise
 NotImplementedError away from their defaults: `remat=True`,
-`storage_dtype` other than float32, a `mesh` or `runtime`,
-`predict_mc_dropout`, and distillation targets in a dataset. `rng_impl` is
-accepted and has no effect.
+`storage_dtype` other than float32, and a `mesh` or `runtime`. `rng_impl`
+is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -83,10 +92,14 @@ from torch.func import functional_call
 
 from tpu_deer_torch.core import losses as loss_lib
 from tpu_deer_torch.core import metrics as metrics_lib
-from tpu_deer_torch.core.nig import nig_expected_abs_error
+from tpu_deer_torch.core.nig import combine_members, nig_expected_abs_error
 from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
 from tpu_deer_torch.device import DeviceLike, resolve_device
-from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
+from tpu_deer_torch.models.deer_model import (
+    CompleteDEERModel,
+    DEERModelConfig,
+    uncertainty_outputs,
+)
 from tpu_deer_torch.train.checkpoint import CheckpointManager
 from tpu_deer_torch.train.optim import AdamW
 from tpu_deer_torch.train.rng import draw_seed, forked_rng, seed_global, seeded_dropout
@@ -161,9 +174,8 @@ def _check_supported(config: TrainingConfig, mesh, runtime) -> None:
                 f"items 5 and 13)")
 
 
-# Dataset arrays a step reads; distillation targets raise.
-BATCH_KEYS = ("audio", "video", "text", "labels")
-DISTILL_KEYS = ("teacher_mu", "teacher_unc")
+# Dataset arrays a step reads (the teacher targets where a dataset has them).
+BATCH_KEYS = ("audio", "video", "text", "labels", "teacher_mu", "teacher_unc")
 ENCODERS = ("audio_encoder", "video_encoder", "text_encoder")
 
 
@@ -225,6 +237,8 @@ class DEERTrainer:
     # least one of each micro-step phase): lazy set-up such as cuBLAS's
     # workspaces must happen outside a capture.
     GRAPH_WARMUP = 3
+    optimizer_cls = AdamW
+    n_members = 1  # models trained together (train/ensemble.py)
 
     def __init__(self, model: CompleteDEERModel,
                  config: TrainingConfig = TrainingConfig(),
@@ -232,7 +246,7 @@ class DEERTrainer:
                  device: DeviceLike = None):
         _check_supported(config, mesh, runtime)
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = self._place(model)
         self.config = config
         self.steps_per_epoch = max(1, steps_per_epoch)
         self._accum = max(1, config.grad_accum_steps)
@@ -240,13 +254,13 @@ class DEERTrainer:
             1, (self.steps_per_epoch * config.num_epochs) // self._accum)
         self._updates_per_epoch = max(1, self.steps_per_epoch // self._accum)
         self.schedule = self._build_schedule()
-        self._params = dict(model.named_parameters())
+        self._params = self._trained_params()
         groups = {"encoder": (config.encoder_lr_scale, []), "main": (1.0, [])}
         for name in self._params:
             if name.startswith(tuple(config.frozen_prefixes)):
                 continue
             groups["encoder" if name.split(".")[0] in ENCODERS else "main"][1].append(name)
-        self.optimizer = AdamW(
+        self.optimizer = self.optimizer_cls(
             self._params, groups, self.schedule, config.weight_decay,
             config.gradient_clip, config.grad_accum_steps, config.ema_decay)
         self.step = 0  # micro-steps
@@ -266,19 +280,32 @@ class DEERTrainer:
         self._spike_scale = 1.0
         self._spike_history: list[float] = []
 
+    def _place(self, model: CompleteDEERModel) -> CompleteDEERModel:
+        return model.to(self.device)
+
+    def _trained_params(self) -> dict[str, torch.Tensor]:
+        """The tensors the optimizer updates, by state_dict name."""
+        return dict(self.model.named_parameters())
+
     # -- state -------------------------------------------------------------
     def state_dict(self) -> dict:
         """The full training state: what a checkpoint holds (parameters,
         optimizer state with the EMA, step, dropout generator)."""
-        return {"model": self.model.state_dict(),
+        return {"model": self._model_state(),
                 "optimizer": self.optimizer.state_dict(), "step": self.step,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
+        self._load_model_state(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
+
+    def _model_state(self) -> dict:
+        return self.model.state_dict()
+
+    def _load_model_state(self, state: dict) -> None:
+        self.model.load_state_dict(state)
 
     def _copy_state(self) -> dict:
         return copy.deepcopy(self.state_dict())
@@ -341,9 +368,15 @@ class DEERTrainer:
         return lambda count: cfg.learning_rate
 
     # -- loss and steps ----------------------------------------------------
-    def _loss_fn(self, batch: dict, dataset_weight: float):
-        cfg = self.config
+    def _loss_fn(self, batch: dict, dataset_weight):
+        """(the differentiated loss, the step's scalars)."""
         out = self.model(batch["audio"], batch["video"], batch["text"])
+        return self._loss_terms(out, batch, dataset_weight)
+
+    def _loss_terms(self, out: dict, batch: dict, dataset_weight):
+        """The loss of the model's outputs `out` on `batch`, and the step's
+        scalars."""
+        cfg = self.config
         dim_names = self.model.config.dim_names
         ps = [out[f"{n}_params"] for n in dim_names]
         y = batch["labels"]
@@ -369,11 +402,19 @@ class DEERTrainer:
             moment_loss = torch.mean(torch.square(
                 torch.log(aleatoric + 1e-4) - torch.log(torch.square(err) + 1e-4)))
             total = total + cfg.aleatoric_moment_weight * moment_loss
+        distill_mu = distill_unc = zero
+        if "teacher_mu" in batch:
+            distill_mu = torch.mean(torch.square(out["mu_all"] - batch["teacher_mu"]))
+            distill_unc = torch.mean(torch.square(
+                torch.log(out["uncertainty_all"] + 1e-4)
+                - torch.log(batch["teacher_unc"] + 1e-4)))
+            total = (total + cfg.distill_mu_weight * distill_mu
+                     + cfg.distill_unc_weight * distill_unc)
         total = total * dataset_weight
         aux = {
             "loss": total,
-            "distill_mu": zero,
-            "distill_unc": zero,
+            "distill_mu": distill_mu,
+            "distill_unc": distill_unc,
             "nll": loss_out.get(f"{dim_names[0]}_nll_loss", zero),
             "mse": torch.mean(torch.square(out["mu_all"] - y)),
             "calibration_alignment": cal_loss,
@@ -512,28 +553,27 @@ class DEERTrainer:
         with torch.no_grad():
             out = (self.model(*args) if params is None
                    else functional_call(self.model, params, args))
-            dim_names = self.model.config.dim_names
-            ps = [out[f"{n}_params"] for n in dim_names]
-            loss = loss_lib.multi_task_deer_loss(
-                ps, batch["labels"],
-                loss_lib.DEERLossConfig(variant=self.config.loss_variant))
-            cat = lambda key: torch.cat([out[f"{n}_{key}"] for n in dim_names], -1)
-            res = {
-                "mu": out["mu_all"],
-                "uncertainty": out["uncertainty_all"],
-                "calibrated_uncertainty": out["calibrated_uncertainty"],
-                "aleatoric": cat("aleatoric_uncertainty"),
-                "epistemic": cat("epistemic_uncertainty"),
-                "eabs": torch.cat([nig_expected_abs_error(p) for p in ps], -1),
-                "loss": loss["total_loss"],
-            }
-            if with_fused:
-                # float32 (exact) for numpy, which has no bfloat16.
-                res["fused"] = out["fused_features"].float()
-            if with_nig:
-                for field in ("nu", "alpha", "beta"):
-                    res[field] = torch.cat([getattr(p, field) for p in ps], -1)
+            res = self._eval_outputs(out, batch["labels"], with_fused, with_nig)
         return {k: v.cpu().numpy() for k, v in res.items()}
+
+    def _eval_outputs(self, out: dict, labels: torch.Tensor,
+                      with_fused: bool = False, with_nig: bool = False) -> dict:
+        """The eval step's outputs from the model's outputs `out`."""
+        dim_names = self.model.config.dim_names
+        ps = [out[f"{n}_params"] for n in dim_names]
+        loss = loss_lib.multi_task_deer_loss(
+            ps, labels, loss_lib.DEERLossConfig(variant=self.config.loss_variant))
+        res = uncertainty_outputs(out, dim_names)
+        res["eabs"] = torch.cat([nig_expected_abs_error(p) for p in ps], -1)
+        res["loss"] = loss["total_loss"]
+        if with_fused:
+            # float32 (exact) for numpy, which has no bfloat16.
+            res["fused"] = out["fused_features"].float()
+        if with_nig:
+            for field in ("nu", "alpha", "beta"):
+                res[field] = torch.cat([getattr(p, field) for p in ps], -1)
+        return res
+
 
     # -- curriculum multi-dataset sampling ---------------------------------
     def _curriculum_probabilities(self, dataset_names: Sequence[str],
@@ -582,11 +622,6 @@ class DEERTrainer:
 
     # -- epochs --------------------------------------------------------------
     def train_epoch(self, train_iterators: dict, epoch: int) -> dict[str, float]:
-        for it in train_iterators.values():
-            if any(k in it.dataset.arrays for k in DISTILL_KEYS):
-                raise NotImplementedError(
-                    "distillation targets are not ported yet (ROADMAP queue 1, "
-                    "item 12)")
         lr_scale = self._plateau_scale * self._spike_scale
         combined = (self._stage_combined({n: it.dataset for n, it in
                                           train_iterators.items()})
@@ -719,7 +754,8 @@ class DEERTrainer:
                         self.state_dict(), step=self.step,
                         metrics={"epoch": epoch, "best_ccc": best_ccc,
                                  "best_serving_channel": best_serving_channel,
-                                 **val},
+                                 **val, **({"ensemble_members": self.n_members}
+                                           if self.n_members > 1 else {})},
                         is_best=is_best)
                 if patience >= cfg.early_stopping_patience:
                     break
@@ -779,6 +815,16 @@ class DEERTrainer:
 
     # -- evaluation convenience -------------------------------------------
     @property
+    def params(self) -> dict[str, torch.Tensor]:
+        """The trained parameters by state_dict name (an ensemble's
+        stacked [K, ...])."""
+        return self._params
+
+    @property
+    def n_parameters(self) -> int:
+        return sum(p.numel() for p in self._params.values())
+
+    @property
     def ema_params(self) -> Optional[dict]:
         """EMA shadow weights by state_dict name (None unless ema_decay > 0)."""
         return self.optimizer.state.get("ema")
@@ -811,9 +857,49 @@ class DEERTrainer:
         mask = np.concatenate(masks)
         return {k: np.concatenate(v)[mask] for k, v in outs.items()}
 
-    def predict_mc_dropout(self, *args, **kwargs):
-        raise NotImplementedError(
-            "predict_mc_dropout is not ported yet (ROADMAP queue 1, item 5)")
+    def predict_mc_dropout(self, dataset: ArrayDataset, n_samples: int = 16,
+                           batch_size: Optional[int] = None, seed: int = 0) -> dict:
+        """Monte-Carlo-dropout predictive uncertainty (Gal & Ghahramani
+        2016): per batch, `n_samples` dropout-on forwards run as one
+        `torch.func.vmap` over the batch repeated S times, each sample with
+        its own masks (`randomness="different"`: the draw of a dropout is
+        one [S, B, ...] draw, laid out as a forward over the S·B rows of the
+        repeated batch would draw it), then combined by moment matching
+        (`core/nig.py:combine_members`): mu the sample mean, epistemic the
+        mean NIG epistemic plus the variance of the sample means. The
+        draws come from the device's generator seeded with `seed`
+        (`train/rng.py`, forked: nothing outside sees it), so a seed
+        repeats."""
+        if n_samples < 1:
+            raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+        it = BatchIterator(dataset, batch_size or self.config.batch_size,
+                           shuffle=False)
+        keys = ("mu", "uncertainty", "calibrated_uncertainty", "aleatoric",
+                "epistemic")
+        outs: dict[str, list] = {k: [] for k in keys}
+        masks = []
+        self.model.train()
+        try:
+            with torch.no_grad(), forked_rng(self.device):
+                seed_global(self.device, seed)
+                for idx, mask_arr in it.epoch_indices(0):
+                    batch = self._batch_from_indices(dataset, idx)
+                    out = combine_members(self._mc_samples(batch, n_samples))
+                    masks.append(mask_arr.astype(bool))
+                    for k in keys:
+                        outs[k].append(out[k].cpu().numpy())
+        finally:
+            self.model.eval()
+        mask = np.concatenate(masks)
+        return {k: np.concatenate(v)[mask] for k, v in outs.items()}
+
+    def _mc_samples(self, batch: dict, n_samples: int) -> dict:
+        """[S, B, ...] outputs of S dropout-on forwards of `batch`."""
+        rep = lambda x: x.unsqueeze(0).repeat(n_samples, *(1,) * x.dim())
+        return torch.func.vmap(
+            lambda a, v, t: uncertainty_outputs(self.model(a, v, t),
+                                                self.model.config.dim_names),
+            randomness="different")(*(rep(batch[k]) for k in ("audio", "video", "text")))
 
 
 def create_trainer(model_config: Optional[DEERModelConfig] = None,
