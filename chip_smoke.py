@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, streaming, raw-media training,
-feature-level training-to-int8-serving and export paths on one NVIDIA card.
+feature-level training-to-int8-serving, export and real-corpus paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -160,6 +161,30 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               fused epoch of distill_study.py's student on them (distill_mu
               and distill_unc finite and > 0); no kernel of K1-K4 or the
               embedding gradient launches on this path (raises otherwise).
+ 13. corpus — the real-corpus path on fixture corpora in the IEMOCAP,
+              RAVDESS and MELD layouts (192 utterances each, real-format
+              wavs, transcripts and CSVs): (a) all three through
+              `data/registry.py:load_configured_datasets` at AUTO, each
+              loader's wall split into decode, K1, MLM, text and video; K1
+              launched once a length bucket, the embedding-gradient kernel
+              once an MLM step (the 4-layer 256-d encoder pretrained on the
+              corpus's own train transcripts on the card), K3's count (0
+              expected: 128 tokens), the MLM loss falling; one MLM step's
+              embedding gradient at full width (ids [64, 128], dropout off)
+              through the kernel lookup against the plain one, each with the
+              tied logits, against its two shares added, and the kernel on
+              the step's dX against its plain twin, within EMB_TOL; IEMOCAP
+              and RAVDESS loaded again with K1's plain twin, the 84-d vectors
+              against K1's within FEAT_TOL;
+              (b) IEMOCAP again with a fresh cache, the MLM encoder, its loss
+              curve and every feature array equal bit for bit; (c)
+              MultiDatasetFramework's joint training (fused epochs) and the
+              transfer matrix at the flagship's width; (d) `cli --mode full
+              --quick` with `datasets.paths` on the three trees (every corpus
+              tested, the text backends recorded) and `cli --raw --quick
+              --raw_dataset` in each layout, K1's in-graph launches; (e)
+              CrossValidationEvaluator (2 folds) and AblationStudy (A, A+T)
+              at 1 epoch on the flagship.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -272,6 +297,16 @@ ENS_GRAD_FACTOR = 2.0
 BF16_TOL = (0.5, 0.25)
 BF16_ROWS = 256
 BF16_TIMED_ROWS = 4096  # the bench's forward batch
+# Phase 13: the real-corpus path. Fixture corpora in the three layouts,
+# 192 utterances each (<= 200, so --quick keeps every split): IEMOCAP and
+# MELD 96/48/48 train/val/test, RAVDESS 8 an actor; wavs of these lengths
+# (s), one K1 length bucket a corpus (8 s and 4 s; MELD's features take no
+# audio). Joint training and each transfer source: 2 epochs at batch 32;
+# `cli --raw --quick` in each layout: 2 epochs.
+CORPUS_ROWS, CORPUS_PER_ACTOR = (96, 48, 48), 8
+CORPUS_SECONDS = {"iemocap": 4.5, "ravdess": 3.5, "meld": 0.8}
+CORPUS_EPOCHS, CORPUS_BATCH, RAW_CLI_EPOCHS = 2, 32, 2
+CORPUS_NAMES = {"iemocap": "IEMOCAP", "ravdess": "RAVDESS", "meld": "MELD"}
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -2951,6 +2986,329 @@ def phase_bench(torch, k1, k2):
     print(f"bench: phase wall {time.perf_counter() - t0:.1f} s")
 
 
+def write_corpora(root):
+    """The three fixture corpora under `root` (raw_corpus's generators:
+    real-format wavs, transcripts, CSVs): {name: its directory}."""
+    from tpu_deer_torch.data import raw_corpus as rc
+
+    roots = {name: os.path.join(root, name) for name in CORPUS_NAMES}
+    rc.generate_raw_fixture(roots["iemocap"], *CORPUS_ROWS,
+                            duration_s=CORPUS_SECONDS["iemocap"], seed=SEED)
+    rc.generate_raw_fixture_ravdess(roots["ravdess"], n_per_actor=CORPUS_PER_ACTOR,
+                                    duration_s=CORPUS_SECONDS["ravdess"], seed=SEED)
+    rc.generate_raw_fixture_meld(roots["meld"], *CORPUS_ROWS,
+                                 duration_s=CORPUS_SECONDS["meld"], seed=SEED)
+    return roots
+
+
+def plain_load(loader, root, cache_dir):
+    """A corpus loaded again through its loader with a caller extractor
+    whose audio takes K1's plain twin: (the loaded splits, the signals the
+    loader sent to the front-end)."""
+    from tpu_deer_torch.data.features import MultimodalFeatureExtractor
+
+    extractor = MultimodalFeatureExtractor(device=DEVICE)
+    plain, sent = extractor.audio.extract_batch, []
+
+    def extract_batch(signals):
+        sent.extend(signals)
+        return plain(signals, plain=True)
+
+    extractor.audio.extract_batch = extract_batch
+    return loader(root, extractor=extractor, cache_dir=cache_dir), sent
+
+
+def mlm_grad_check(torch, emb, featurizer, texts):
+    """One MLM step's gradient of the token embedding at the featurizer's
+    width, dropout off (its encoder in eval mode), from one masking of
+    `texts`: the lookup's kernel plus the tied logits' product against the
+    lookup's plain twin plus the same product; that sum against the
+    kernel's share plus the product's alone (the lookup detached); and the
+    kernel called on the step's (ids, dX) against its plain twin in
+    float64. Raises outside EMB_TOL; returns (ids shape, errors)."""
+    import torch.nn.functional as F
+
+    from tpu_deer_torch.models import encoders
+    from tpu_deer_torch.train import text_pretrain as tp
+
+    enc, vocab = featurizer.encoder, featurizer.vocab
+    ids, mask = (torch.from_numpy(a.astype(np.int64)).to(DEVICE)
+                 for a in vocab.encode_batch(texts))
+    draws = tp.mlm_draws(torch.Generator(device=DEVICE).manual_seed(SEED),
+                         ids.shape, vocab.vocab_size, DEVICE)
+    corrupted, selected = tp._apply_mlm_mask(ids, mask, featurizer.config.mask_prob,
+                                             *draws)
+    routes = {"kernel": (emb.embedding_lookup, 1),
+              "plain": (emb.embedding_lookup_plain, 0),
+              "tied only": (lambda i, w: F.embedding(i, w.detach()), 0)}
+    saved, grads, dx = encoders.embedding_lookup, {}, {}
+    for route, (lookup, want) in routes.items():
+        def recording(i, w, lookup=lookup, route=route):
+            x = lookup(i, w)
+            if x.requires_grad:
+                x.register_hook(lambda g: dx.__setitem__(route, g))
+            return x
+
+        encoders.embedding_lookup = recording
+        before = emb.embedding_grad.launches
+        try:
+            loss, _ = tp.mlm_loss(enc, corrupted, ids, mask, selected)
+            grads[route], = torch.autograd.grad(loss, [enc.embed.weight])
+        finally:
+            encoders.embedding_lookup = saved
+        if emb.embedding_grad.launches - before != want:
+            raise AssertionError(f"MLM step through the {route} lookup launched "
+                                 f"the embedding kernel "
+                                 f"{emb.embedding_grad.launches - before} times")
+    lookup_dw = emb.embedding_grad(corrupted, dx["kernel"].contiguous(),
+                                   vocab.vocab_size)
+    ref = emb.embedding_grad_plain(corrupted, dx["kernel"].double(), vocab.vocab_size)
+    errs = {
+        "kernel vs plain lookup, tied logits on both": check_close(
+            "MLM embedding gradient, kernel vs plain lookup",
+            grads["kernel"].double(), grads["plain"].double(), *EMB_TOL),
+        "sum vs kernel's share + product's share": check_close(
+            "MLM embedding gradient, sum of the two shares",
+            grads["kernel"].double(), (lookup_dw + grads["tied only"]).double(),
+            *EMB_TOL),
+        "kernel vs plain twin on the step's dX": check_close(
+            "embedding grad at the MLM's shape", lookup_dw.double(), ref, *EMB_TOL),
+    }
+    if not grads["tied only"].abs().max() > 0 or not lookup_dw.abs().max() > 0:
+        raise AssertionError("a share of the MLM embedding gradient is zero")
+    return tuple(ids.shape), errs
+
+
+def phase_corpus(torch, k1, k3, emb):
+    """Phase 13: the real-corpus path. (a) the three corpora through the
+    registry at AUTO (K1 on every utterance's audio, the MLM bootstrap on
+    the card); (b) IEMOCAP again with a fresh cache, bit for bit; (c) joint
+    training and the transfer matrix; (d) `cli --mode full --quick` on the
+    corpora and `cli --raw --quick` in each layout; (e) cross-validation
+    and ablation at the flagship's width."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from tpu_deer_torch import cli
+    from tpu_deer_torch.data import iemocap, ravdess
+    from tpu_deer_torch.data.features import AudioFeatureExtractor
+    from tpu_deer_torch.data.pipeline import ArrayDataset
+    from tpu_deer_torch.data.registry import load_configured_datasets
+    from tpu_deer_torch.eval.ablation import AblationStudy
+    from tpu_deer_torch.eval.cross_validation import CrossValidationEvaluator
+    from tpu_deer_torch.models.deer_model import DEERModelConfig
+    from tpu_deer_torch.train.multi_dataset import MultiDatasetFramework
+    from tpu_deer_torch.train.trainer import TrainingConfig
+    from tpu_deer_torch.utils.config import default_config, save_yaml_config
+
+    platform = "auto" if DEVICE == "cuda" else DEVICE
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="corpora_") as tmp:
+        t0 = time.perf_counter()
+        roots = write_corpora(os.path.join(tmp, "corpora"))
+        print(f"corpus: fixtures in the three layouts, 192 utterances each, "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        config = {"datasets": {"names": list(CORPUS_NAMES.values()),
+                               "paths": {CORPUS_NAMES[n]: r
+                                         for n, r in roots.items()}}}
+
+        # (a) the corpora at AUTO through the registry.
+        k3_fns = (k3.flash_attention_fwd, k3.flash_attention_bwd_dq,
+                  k3.flash_attention_bwd_dkv)
+        for fn in (k1.mfcc_signal, emb.embedding_grad, *k3_fns):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        loaded = load_configured_datasets(config, device=DEVICE)
+        wall = time.perf_counter() - t0
+        k1_n, emb_n = k1.mfcc_signal.launches, emb.embedding_grad.launches
+        k3_n = [fn.launches for fn in k3_fns]
+        if loaded is None or set(loaded["train"]) != set(CORPUS_NAMES):
+            raise AssertionError("the registry did not load all three corpora")
+        meta = loaded.pop("meta")
+        backends = meta["text_backend"]
+        if backends != {"iemocap": "mlm", "ravdess": "hashed", "meld": "mlm"}:
+            raise AssertionError(f"text backends {backends}")
+        for name in CORPUS_NAMES:
+            t = meta["load_s"][name]
+            rows = {sp: len(loaded[sp][name]) for sp in ("train", "val", "test")}
+            print(f"corpus (a): {name} {rows}, text {backends[name]}: wall "
+                  f"{t['total_s']:.2f} s = decode {t.get('decode_s', 0):.2f} + "
+                  f"K1 front-end {t.get('audio_s', 0):.3f} + MLM "
+                  f"{t.get('mlm_s', 0):.2f} + text features {t['text_s']:.3f} + "
+                  f"video {t['video_s']:.3f} s")
+        encoders = meta["text_encoder"]
+        runs = {n: enc.history for n, enc in encoders.items()}
+        if set(runs) != {"iemocap", "meld"} or None in runs.values():
+            raise AssertionError(f"MLM runs {sorted(runs)}: want iemocap and meld "
+                                 f"trained by this load")
+        steps = sum(sum(h["steps"]) for h in runs.values())
+        # The same corpora again through their loaders, K1's plain twin in
+        # place of the kernel.
+        plain = {n: plain_load(loader, roots[n], os.path.join(tmp, "plain", n))
+                 for n, loader in (("iemocap", iemocap.load_iemocap),
+                                   ("ravdess", ravdess.load_ravdess))}
+        audio = AudioFeatureExtractor(device=DEVICE)
+        buckets = sum(len({audio._bucket_length(len(x)) for x in sent})
+                      for _, sent in plain.values())
+        print(f"corpus (a): registry wall {wall:.2f} s; K1 launches {k1_n} "
+              f"(one a length bucket: {buckets}); embedding-gradient launches "
+              f"{emb_n} (one an MLM step: {steps}); K3a/b/c launches {k3_n} "
+              f"(128 tokens, below the flash threshold)")
+        if k1_n != buckets or emb_n != steps:
+            raise AssertionError(f"K1 {k1_n} != {buckets} or embedding "
+                                 f"{emb_n} != {steps} launches")
+        for n, h in runs.items():
+            loss, acc = h["mlm_loss"], h["mlm_accuracy"]
+            print(f"corpus (a): MLM on {n}'s train transcripts: {len(loss)} "
+                  f"epochs, {sum(h['steps'])} steps, loss {loss[0]:.4f} -> "
+                  f"{loss[-1]:.4f}, accuracy {acc[0]:.4f} -> {acc[-1]:.4f}")
+            if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+                raise AssertionError(f"MLM loss did not fall: {loss}")
+        texts = [x["text"] for x in iemocap.parse_annotations(Path(roots["iemocap"]))
+                 if x["text"]][:encoders["iemocap"].config.batch_size]
+        shape, errs = mlm_grad_check(torch, emb, encoders["iemocap"], texts)
+        cfg_mlm = encoders["iemocap"].config
+        print(f"corpus (a): one MLM step's embedding gradient, ids {list(shape)}, "
+              f"D={cfg_mlm.model_dim}, {cfg_mlm.num_layers} layers, V="
+              f"{encoders['iemocap'].vocab.vocab_size}, dropout off: max abs err "
+              + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bound {EMB_TOL[1]} + {EMB_TOL[0]}·|ref|)")
+        for n, (ref_splits, _) in plain.items():
+            got, ref = (np.concatenate([d[sp].arrays["audio"]
+                                        for sp in ("train", "val", "test")])
+                        for d in ({sp: loaded[sp][n] for sp in loaded}, ref_splits))
+            err = check_close(f"{n} 84-d vectors, K1 vs plain",
+                              torch.from_numpy(got), torch.from_numpy(ref), *FEAT_TOL)
+            print(f"corpus (a): {n} {got.shape} audio vectors, K1 vs plain twin: "
+                  f"max abs err {err:.3e} (bound {FEAT_TOL[1]} + "
+                  f"{FEAT_TOL[0]}·|plain|)")
+        for sp in ("train", "val", "test"):
+            for n, ds in loaded[sp].items():
+                if not all(np.isfinite(v).all() for v in ds.arrays.values()):
+                    raise AssertionError(f"{n} {sp}: non-finite arrays")
+
+        # (b) the seeded MLM run and the features, again from a fresh cache.
+        t0 = time.perf_counter()
+        again = iemocap.load_iemocap(roots["iemocap"], device=DEVICE,
+                                     cache_dir=os.path.join(tmp, "fresh"))
+        first, second = encoders["iemocap"], again["text_encoder"]
+        w1, w2 = first.encoder.state_dict(), second.encoder.state_dict()
+        differ = [k for k in w1 if not torch.equal(w1[k], w2[k])]
+        differ += [f"{sp}.{k}" for sp in ("train", "val", "test")
+                   for k, v in loaded[sp]["iemocap"].arrays.items()
+                   if not np.array_equal(v, again[sp].arrays[k])]
+        if differ or first.history != second.history:
+            raise AssertionError(f"IEMOCAP reloaded with a fresh cache differs: "
+                                 f"{differ[:8]}, histories equal: "
+                                 f"{first.history == second.history}")
+        print(f"corpus (b): IEMOCAP with a fresh cache in {time.perf_counter() - t0:.2f} "
+              f"s: the MLM encoder ({len(w1)} tensors), its loss curve and "
+              f"every feature array equal bit for bit")
+
+        # (c) joint training and the transfer matrix.
+        datasets = {n: {sp: loaded[sp][n] for sp in ("train", "val", "test")}
+                    for n in CORPUS_NAMES}
+        tcfg = TrainingConfig(
+            learning_rate=2e-3, batch_size=CORPUS_BATCH, num_epochs=CORPUS_EPOCHS,
+            warmup_epochs=0, scheduler="constant", fused_epochs=True,
+            dataset_weights={"iemocap": 1.0, "ravdess": 0.8, "meld": 0.6}, seed=42)
+        t0 = time.perf_counter()
+        fw = MultiDatasetFramework(DEERModelConfig(), tcfg, datasets, device=DEVICE)
+        res = fw.run_full_experiment(
+            num_epochs=CORPUS_EPOCHS,
+            report_path=os.path.join(tmp, "multi_dataset_report.json"))
+        joint = {n: r["ccc_average"] for n, r in res.per_dataset.items()}
+        eff = {k: v["transfer_effectiveness"] for k, v in res.transfer.items()}
+        if len(eff) != 6 or not all(0.0 <= e <= 1.0 for e in eff.values()) \
+                or not all(math.isfinite(c) for c in joint.values()):
+            raise AssertionError(f"joint {joint}, transfer {eff}")
+        print(f"corpus (c): joint training {CORPUS_EPOCHS} epochs + 3 sources, "
+              f"{time.perf_counter() - t0:.2f} s; joint CCC "
+              + ", ".join(f"{n} {c:.4f}" for n, c in joint.items()))
+        print("corpus (c): transfer (source CCC -> target CCC, effectiveness) "
+              + "; ".join(f"{k} {v['source_ccc']:.4f} -> {v['target_ccc']:.4f}, "
+                          f"{v['transfer_effectiveness']:.3f}"
+                          for k, v in res.transfer.items()))
+
+        # (d) the CLI on the corpora, and --raw in each layout.
+        cfg = default_config()
+        cfg["datasets"]["paths"] = config["datasets"]["paths"]
+        cfg_path = os.path.join(tmp, "corpora.yaml")
+        save_yaml_config(cfg, cfg_path)
+        out = os.path.join(tmp, "cli")
+        k1.mfcc_signal.launches = emb.embedding_grad.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--mode", "full", "--quick", "--config", cfg_path,
+                       "--output_dir", out, "--experiment_name", "corpora",
+                       "--platform", platform])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "corpora", "results", "pipeline_summary.json")) as f:
+            summary = json.load(f)
+        tested = summary["test_results"]
+        if rc != 0 or set(tested) != set(CORPUS_NAMES) \
+                or summary["text_backend"] != backends:
+            raise AssertionError(f"cli --mode full --quick on the corpora: rc "
+                                 f"{rc}, tested {sorted(tested)}, backends "
+                                 f"{summary['text_backend']}")
+        print(f"corpus (d): cli --mode full --quick on the corpora, {wall:.2f} s "
+              f"(K1 launches {k1.mfcc_signal.launches}, embedding-gradient "
+              f"{emb.embedding_grad.launches}: the quick keys reload the "
+              f"features, the encoders come from their corpus-keyed cache); "
+              f"test CCC " + ", ".join(f"{n} {r['ccc_average']:.4f}"
+                                       for n, r in tested.items()))
+        if k1.mfcc_signal.launches != buckets:
+            raise AssertionError("the CLI's loaders did not take K1")
+        for layout in CORPUS_NAMES:
+            for fn in (k1.mfcc_signal, *k3_fns):
+                fn.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["--raw", "--quick", "--raw_dataset", layout,
+                           "--epochs", str(RAW_CLI_EPOCHS), "--output_dir", out,
+                           "--experiment_name", f"raw_{layout}",
+                           "--platform", platform])
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out, f"raw_{layout}", "results",
+                                   "raw_results.json")) as f:
+                raw = json.load(f)
+            n = k1.mfcc_signal.launches
+            if rc != 0 or raw["raw_layout"] != layout or n == 0 \
+                    or not math.isfinite(raw["test"]["ccc_average"]):
+                raise AssertionError(f"cli --raw --raw_dataset {layout}: rc {rc}, "
+                                     f"K1 launches {n}")
+            print(f"corpus (d): cli --raw --quick --raw_dataset {layout} "
+                  f"--epochs {RAW_CLI_EPOCHS}: {wall:.2f} s, K1 launches in the "
+                  f"graph {n}, K3a/b/c {[fn.launches for fn in k3_fns]}, vocab "
+                  f"{raw['vocab_size']}, best val CCC "
+                  f"{raw['best_val_ccc']:.4f}, test CCC "
+                  f"{raw['test']['ccc_average']:.4f}")
+
+        # (e) cross-validation and ablation at the flagship's width.
+        ie = datasets["iemocap"]
+        whole = ArrayDataset({k: np.concatenate([ie[sp].arrays[k] for sp in
+                                                  ("train", "val", "test")])
+                              for k in ie["train"].arrays}, "iemocap")
+        ecfg = dataclasses.replace(tcfg, num_epochs=1, fused_epochs=False,
+                                   dataset_weights={"iemocap": 1.0})
+        t0 = time.perf_counter()
+        cv = CrossValidationEvaluator(DEERModelConfig(), ecfg, n_folds=2,
+                                      device=DEVICE).run(whole, epochs_per_fold=1)
+        ab = AblationStudy(DEERModelConfig(), ecfg,
+                           subsets=(("audio",), ("audio", "text")),
+                           device=DEVICE).run(ie["train"], ie["val"], ie["test"],
+                                              num_epochs=1)
+        if len(cv["folds"]) != 2 or set(ab) != {"A", "A+T"} or not all(
+                math.isfinite(x) for x in (cv["ccc_mean"], ab["A"]["ccc_average"],
+                                           ab["A+T"]["ccc_average"])):
+            raise AssertionError(f"cv {cv['ccc_mean']}, ablation {sorted(ab)}")
+        print(f"corpus (e): 2-fold CV x 1 epoch and ablation of 2 subsets x 1 "
+              f"epoch on IEMOCAP at the flagship's width, "
+              f"{time.perf_counter() - t0:.2f} s: CV CCC {cv['ccc_mean']:.4f} ± "
+              f"{cv['ccc_std']:.4f}; ablation CCC A {ab['A']['ccc_average']:.4f}, "
+              f"A+T {ab['A+T']['ccc_average']:.4f}")
+    print(f"corpus: phase 13 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3008,6 +3366,7 @@ def main() -> int:
                            k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv,
                            emb.embedding_grad, k4.quantize_int8_stochastic,
                            k4.quantize_int8_stochastic_bits))
+    phase_corpus(torch, k1, k3, emb)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

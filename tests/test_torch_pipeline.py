@@ -287,12 +287,6 @@ def test_main_full_then_evaluate_on_cpu(tmp_path):
     assert tcli.main(["--mode", "test", "--platform", "cpu"]) == 0
 
 
-@pytest.mark.parametrize("argv", [["--raw"]])
-def test_main_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError):
-        tcli.main([*argv, "--platform", "cpu"])
-
-
 def _small_config(tmp_path):
     cfg = tconfig.default_config()
     cfg["model"].update(encoder_dim=32, fusion_dim=64, encoder_layers=1)
@@ -303,16 +297,22 @@ def _small_config(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--mode", "visualize"],
                                   ["--mode", "export", "--ensemble", "2"],
-                                  ["--ensemble", "2"]],
-                         ids=["visualize", "export_ensemble", "ensemble"])
+                                  ["--ensemble", "2"], ["--raw"]],
+                         ids=["visualize", "export_ensemble", "ensemble", "raw"])
 def test_main_runs_what_was_refused(argv, tmp_path):
-    """The paths the CLI refused before deep ensembles and the plots were
-    ported, run on the CPU at a narrow width; each checks what it wrote."""
+    """The paths the CLI refused before deep ensembles, the plots and the
+    raw-media pipeline were ported, run on the CPU at a narrow width; each
+    checks what it wrote."""
     out = tmp_path / "out"
     assert tcli.main([*argv, "--config", _small_config(tmp_path), "--output_dir",
                       str(out), "--experiment_name", "e", "--platform", "cpu",
                       "--quick", "--epochs", "1"]) == 0
-    if argv[-1] == "visualize":
+    if argv == ["--raw"]:  # the IEMOCAP layout, generated (seed 42, 96/24/24)
+        with open(out / "e" / "results" / "raw_results.json") as f:
+            raw = json.load(f)
+        assert raw["raw_layout"] == "iemocap" and raw["test"]["n_samples"] == 24
+        assert np.isfinite(raw["test"]["ccc_average"])
+    elif argv[-1] == "visualize":
         plots = out / "e" / "plots"
         with open(plots / "report_data.json") as f:
             data = json.load(f)
@@ -351,8 +351,27 @@ def test_main_auto_needs_a_card(monkeypatch, tmp_path):
 
 
 def test_configured_corpus_path_raises(tmp_path):
+    """A configured corpus path that exists loads through the registry (an
+    IEMOCAP-layout fixture, hashed text) and its text backend reaches the
+    pipeline; a configured directory that holds no corpus is skipped by the
+    registry (the loader's FileNotFoundError becomes its warning), so the
+    pipeline falls back to the synthetic fixture."""
+    from tpu_deer_torch.data.raw_corpus import generate_raw_fixture
+
+    corpus = str(tmp_path / "iemocap")
+    generate_raw_fixture(corpus, n_train=8, n_val=4, n_test=4, duration_s=0.3,
+                         seed=0)
     p = tcli.MultimodalDEERPipeline(
         output_dir=str(tmp_path), experiment_name="x", quick=True,
-        overrides={"datasets.paths": {"IEMOCAP": str(tmp_path)}}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        p.create_datasets()
+        overrides={"datasets.paths": {"IEMOCAP": corpus},
+                   "datasets.pretrain_text": False}, device="cpu")
+    data = p.create_datasets()
+    assert {split: len(d["iemocap"]) for split, d in data.items()} == {
+        "train": 8, "val": 4, "test": 4}
+    assert p.text_backends == {"iemocap": "hashed"}
+    assert data["train"]["iemocap"].arrays["audio"].shape == (8, 84)
+    empty = tcli.MultimodalDEERPipeline(
+        output_dir=str(tmp_path), experiment_name="y", quick=True,
+        overrides={"datasets.paths": {"IEMOCAP": str(tmp_path / "x")}},
+        device="cpu")
+    assert set(empty.create_datasets()["train"]) == {"synthetic"}

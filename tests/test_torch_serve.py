@@ -155,9 +155,14 @@ def test_unported_serving_options_raise(kw):
 
 
 def test_unported_text_backends_raise(monkeypatch):
+    # BERT is not ported and raises; the MLM-encoder backend is ported, and a
+    # directory that does not exist leaves the hashed backend, as in the
+    # reference.
     with pytest.raises(NotImplementedError):
         TextFeatureExtractor(bert_dir="/nonexistent")
-    monkeypatch.setenv("TPU_DEER_TEXT_ENCODER_DIR", "encoder")
+    monkeypatch.setenv("TPU_DEER_TEXT_ENCODER_DIR", "/nonexistent/encoder")
+    assert TextFeatureExtractor().backend == "hashed"
+    monkeypatch.setenv("TPU_DEER_BERT_DIR", "/nonexistent/bert")
     with pytest.raises(NotImplementedError):
         TextFeatureExtractor()
 

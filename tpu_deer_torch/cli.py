@@ -34,11 +34,19 @@ outputs, and `--mode export --ensemble K` an artifact of all K members.
 matplotlib is installed, else only the interactive HTML dashboard and the
 JSON data export (the summary's `plots` records why).
 
-Not ported yet, and raising NotImplementedError: `--raw` and the corpus
-loaders (a configured dataset path that exists on disk).
-`--raw_dataset` and the unused `--results_dir` are not taken. Where the
-reference's default paths (`/path/to/...`) do not exist, the pipeline takes
-the synthetic fixture, as the reference does.
+Data: the corpora configured under `datasets.names`/`datasets.paths` that
+exist on disk load through `data/registry.py` (IEMOCAP, RAVDESS and MELD,
+every utterance's audio through K1 on the card, the MLM text bootstrap by
+default); the backend that made each corpus's text features is recorded in
+the artifacts. Where no configured path exists (the config's
+`/path/to/...`), the pipeline takes the synthetic fixture with a warning,
+as the reference does.
+
+`--raw` (`run_raw_pipeline`) trains `RawSequenceDEERModel` end to end from
+waveforms, frame arrays and transcripts, with K1 in the step, in the
+layout of `--raw_dataset` (iemocap, ravdess or meld): the corpus at
+`datasets.raw_root`, or a generated fixture in that layout, and writes
+`results/raw_results.json`. The unused `--results_dir` is not taken.
 """
 
 from __future__ import annotations
@@ -175,19 +183,19 @@ class MultimodalDEERPipeline:
         return self.model
 
     def create_datasets(self):
-        """The synthetic fixture. A configured corpus path that exists on
-        disk raises: the corpus loaders are not ported."""
+        """The configured corpora that exist on disk, through the registry;
+        the synthetic fixture, with a warning, where none does."""
         from tpu_deer_torch.data.pipeline import ArrayDataset
+        from tpu_deer_torch.data.registry import load_configured_datasets
         from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
 
-        ds = self.config.get("datasets", {})
-        paths = ds.get("paths", {})
-        found = [n for n in ds.get("names", []) if paths.get(n)
-                 and os.path.isdir(paths[n])]
-        if found:
-            raise NotImplementedError(
-                f"the corpus loaders are not ported yet (ROADMAP queue 1, item "
-                f"8); configured paths exist for {found}")
+        loaded = load_configured_datasets(self.config, quick=self.quick,
+                                          device=self.device)
+        if loaded:
+            self.text_backends = loaded.pop("meta", {}).get("text_backend", {})
+            self.datasets = loaded
+            logger.info(f"loaded real datasets: {list(loaded['train'])}")
+            return self.datasets
         logger.warning("no real dataset paths found — using the synthetic "
                        "fixture (set datasets.paths in the config to train on "
                        "real data)")
@@ -443,6 +451,100 @@ class MultimodalDEERPipeline:
         logger.info(f"restored checkpoint from {model_path}")
 
 
+RAW_LAYOUTS = ("iemocap", "ravdess", "meld")
+
+
+def _raw_layout(layout: str):
+    """(fixture generator taking (root, n_train, n_val, n_test, seed),
+    loader) of a raw corpus layout."""
+    from tpu_deer_torch.data import raw_corpus as rc
+
+    return {
+        "iemocap": (rc.generate_raw_fixture, rc.load_raw_corpus),
+        # 24 actors, 18/3/3 train/val/test by actor.
+        "ravdess": (lambda root, n_train, n_val, n_test, seed:
+                    rc.generate_raw_fixture_ravdess(
+                        root, n_per_actor=max(1, round(n_train / 18)), seed=seed),
+                    rc.load_raw_ravdess),
+        "meld": (lambda root, n_train, n_val, n_test, seed:
+                 rc.generate_raw_fixture_meld(root, n_train=n_train, n_val=n_val,
+                                              n_test=n_test, seed=seed),
+                 rc.load_raw_meld),
+    }[layout]
+
+
+def run_raw_pipeline(args, device: DeviceLike = None) -> dict:
+    """--raw: raw-media training end to end on `device` (None = the CUDA
+    card). The corpus at `datasets.raw_root` in the config, or a fixture
+    in the `--raw_dataset` layout generated under the experiment (seed 42;
+    96/24/24 utterances with --quick, else 768/96/96), loads into padded
+    arrays; RawSequenceDEERModel (encoder 64 and fusion 128 with --quick,
+    else 128 and 256; seeded init 42) trains with RawSequenceTrainer (K1 in
+    the step on the card; lr 2e-3, batch 32 or 64, 12 or 60 epochs unless
+    given), predicts the test split and is evaluated; the summary goes to
+    results/raw_results.json."""
+    from tpu_deer_torch.eval.evaluator import DEERModelEvaluator
+    from tpu_deer_torch.models.hierarchical_deer import create_raw_sequence_model
+    from tpu_deer_torch.ops.audio_frontend import AudioFrontendConfig
+    from tpu_deer_torch.train.raw_trainer import RawSequenceTrainer, RawTrainingConfig
+    from tpu_deer_torch.utils.config import load_yaml_config
+
+    device = resolve_device(device)
+    config = load_yaml_config(args.config)
+    name = args.experiment_name or time.strftime("raw_experiment_%Y%m%d_%H%M%S")
+    exp_dir = os.path.join(args.output_dir, name)
+    for sub in ("results", "data", "logs"):
+        os.makedirs(os.path.join(exp_dir, sub), exist_ok=True)
+
+    layout = args.raw_dataset
+    generate_fixture, load_corpus = _raw_layout(layout)
+    raw_root = config["datasets"].get("raw_root")
+    if not (raw_root and os.path.isdir(raw_root)):
+        raw_root = os.path.join(exp_dir, "data", f"raw_fixture_{layout}")
+        logger.warning(
+            "no datasets.raw_root configured — generating a raw-media fixture "
+            f"corpus in the {layout} layout under {raw_root} (real-format wavs "
+            "+ frame arrays + transcripts with learnable labels)")
+        n = (96, 24, 24) if args.quick else (768, 96, 96)
+        generate_fixture(raw_root, *n, seed=42)
+
+    splits, vocab = load_corpus(raw_root)
+    logger.info("raw corpus: " + ", ".join(f"{k}={len(v['labels'])}"
+                                           for k, v in splits.items())
+                + f" | vocab {vocab.vocab_size}")
+    model = create_raw_sequence_model(
+        seed=42, device=device, encoder_dim=64 if args.quick else 128,
+        fusion_dim=128 if args.quick else 256, vocab_size=vocab.vocab_size,
+        num_heads=4, dropout=0.1)
+    trainer = RawSequenceTrainer(
+        model, RawTrainingConfig(
+            learning_rate=args.learning_rate or 2e-3,
+            batch_size=args.batch_size or (32 if args.quick else 64),
+            num_epochs=args.epochs or (12 if args.quick else 60)),
+        frontend_config=AudioFrontendConfig(), device=device)
+    tr = splits["train"]
+    results = trainer.train(tr, splits.get("val"))
+    test = splits.get("test") or splits["val"]
+    pred = trainer.predict(test)
+    ev = DEERModelEvaluator(n_bootstrap=0).evaluate_arrays(
+        pred["mu"], test["labels"], pred["uncertainty"])
+    summary = {
+        "experiment_dir": exp_dir,
+        "raw_layout": layout,
+        "raw_root": raw_root,
+        "vocab_size": vocab.vocab_size,
+        "best_val_ccc": results["best_val_ccc"],
+        "test": ev.to_dict(),
+        "history": results["history"],
+        "training_time_s": results["training_time_s"],
+    }
+    with open(os.path.join(exp_dir, "results", "raw_results.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=float)
+    logger.info(f"raw e2e: best val CCC {results['best_val_ccc']:.4f} | "
+                f"test CCC {ev.ccc_average:.4f} MAE {ev.mae_average:.4f}")
+    return summary
+
+
 def run_component_tests(device: DeviceLike = None) -> bool:
     """--mode test: model forward, DEER loss and NIG math on `device`, and a
     training-curve plot (skipped where matplotlib is not installed)."""
@@ -517,7 +619,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(explicit flags still win); same values as "
                         "configs/uncertainty.yaml")
     p.add_argument("--raw", action="store_true",
-                   help="raw-media training (not ported to this CLI yet)")
+                   help="raw-media end-to-end training: waveforms + frame "
+                        "arrays + transcripts through RawSequenceDEERModel "
+                        "with K1 in the step (datasets.raw_root in the "
+                        "config, or a generated fixture)")
+    p.add_argument("--raw_dataset", choices=RAW_LAYOUTS, default="iemocap",
+                   help="corpus layout for --raw: IEMOCAP session dirs, "
+                        "RAVDESS filename-coded Actor_XX wavs, or MELD CSV + "
+                        "media dirs")
     p.add_argument("--ensemble", type=int, default=None, metavar="K",
                    help="train a K-member deep ensemble (all members in one "
                         "vmapped step; predictions moment-matched, the "
@@ -584,14 +693,17 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
-    if args.raw:
-        raise NotImplementedError(
-            "--raw (ROADMAP queue 1, item 6) is not ported yet")
     device = resolve_device(PLATFORMS[args.platform])
     logger.info("device: %s", device)
 
     if args.mode == "test":
         return 0 if run_component_tests(device) else 1
+    if args.raw:
+        summary = run_raw_pipeline(args, device)
+        print(json.dumps({"best_val_ccc": summary["best_val_ccc"],
+                          "test_ccc": summary["test"]["ccc_average"],
+                          "experiment_dir": summary["experiment_dir"]}, indent=2))
+        return 0
 
     overrides = {}
     if args.epochs is not None:

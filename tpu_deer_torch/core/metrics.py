@@ -1,17 +1,158 @@
-"""Host-side metrics in numpy: own copy of the reference's `ccc_np`,
-`pearson_np`, `reliability_np`, `ece_np`, `evaluate_predictions` and
-`statistical_significance_test` (`tpu_deer/core/metrics.py`), for the
-trainers' validation and the evaluators. The jnp metrics and
-`cross_dataset_transfer_effectiveness` are not ported yet.
+"""Regression and uncertainty metrics (port of `tpu_deer/core/metrics.py`).
+
+Two halves, as in the reference:
+
+  * device metrics on tensors — `ccc_sufficient_stats` / `ccc_from_stats`
+    (Lin's CCC from six additive sums, so shards can be summed before the
+    ratio), `concordance_correlation_coefficient`, `pearson_correlation`,
+    MAE, RMSE and `uncertainty_calibration_error`. Non-finite pairs are
+    masked with `torch.where`, never dropped by boolean indexing, so the
+    shapes stay static. They compute in float32, as the jnp originals.
+  * host metrics in numpy — `ccc_np`, `pearson_np`, `reliability_np`,
+    `ece_np`, `evaluate_predictions`, `statistical_significance_test` and
+    `cross_dataset_transfer_effectiveness`, for the trainers' validation and
+    the evaluators.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 EPS = 1e-8
+
+
+def _valid_mask(*tensors: torch.Tensor) -> torch.Tensor:
+    mask = torch.ones_like(tensors[0], dtype=torch.bool)
+    for t in tensors:
+        mask = mask & torch.isfinite(t)
+    return mask
+
+
+def _flat(x) -> torch.Tensor:
+    return torch.as_tensor(x).reshape(-1)
+
+
+class CCCStats(NamedTuple):
+    """Sufficient statistics for CCC; additive across shards."""
+
+    n: torch.Tensor
+    sum_x: torch.Tensor
+    sum_y: torch.Tensor
+    sum_x2: torch.Tensor
+    sum_y2: torch.Tensor
+    sum_xy: torch.Tensor
+
+
+def ccc_sufficient_stats(y_true: torch.Tensor, y_pred: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> CCCStats:
+    """n, Σx, Σy, Σx², Σy², Σxy over the pairs in `mask` (default: the
+    finite pairs), in float32."""
+    if mask is None:
+        mask = _valid_mask(y_true, y_pred)
+    zero = torch.zeros((), dtype=torch.float32, device=y_true.device)
+    x = torch.where(mask, y_true.float(), zero)
+    y = torch.where(mask, y_pred.float(), zero)
+    return CCCStats(n=mask.float().sum(), sum_x=x.sum(), sum_y=y.sum(),
+                    sum_x2=(x * x).sum(), sum_y2=(y * y).sum(),
+                    sum_xy=(x * y).sum())
+
+
+def _moments(s: CCCStats):
+    n = torch.clamp(s.n, min=1.0)
+    mean_x, mean_y = s.sum_x / n, s.sum_y / n
+    var_x = s.sum_x2 / n - mean_x ** 2
+    var_y = s.sum_y2 / n - mean_y ** 2
+    cov = s.sum_xy / n - mean_x * mean_y
+    return mean_x, mean_y, var_x, var_y, cov
+
+
+def ccc_from_stats(s: CCCStats) -> torch.Tensor:
+    """Lin's CCC = 2 cov / (var_x + var_y + (mean_x - mean_y)²), population
+    variances; 0 where the denominator is below EPS or n is 0."""
+    mean_x, mean_y, var_x, var_y, cov = _moments(s)
+    denom = var_x + var_y + torch.square(mean_x - mean_y)
+    zero = torch.zeros_like(denom)
+    ccc = torch.where(denom.abs() > EPS, 2.0 * cov / denom, zero)
+    return torch.where(s.n > 0, ccc, zero)
+
+
+def concordance_correlation_coefficient(y_true, y_pred) -> torch.Tensor:
+    """Lin's CCC over the finite pairs."""
+    return ccc_from_stats(ccc_sufficient_stats(_flat(y_true), _flat(y_pred)))
+
+
+def pearson_correlation(y_true, y_pred) -> torch.Tensor:
+    """Pearson r over the finite pairs."""
+    _, _, var_x, var_y, cov = _moments(
+        ccc_sufficient_stats(_flat(y_true), _flat(y_pred)))
+    denom = torch.sqrt(torch.clamp(var_x * var_y, min=EPS * EPS))
+    return torch.where(denom > EPS, cov / denom, torch.zeros_like(denom))
+
+
+def _masked_mean_error(y_true, y_pred, fn) -> torch.Tensor:
+    y_true, y_pred = _flat(y_true), _flat(y_pred)
+    mask = _valid_mask(y_true, y_pred)
+    n = torch.clamp(mask.sum().float(), min=1.0)
+    err = torch.where(mask, fn(y_true - y_pred), torch.zeros_like(y_true))
+    return err.sum() / n
+
+
+def mean_absolute_error(y_true, y_pred) -> torch.Tensor:
+    """MAE over the finite pairs."""
+    return _masked_mean_error(y_true, y_pred, torch.abs)
+
+
+def root_mean_squared_error(y_true, y_pred) -> torch.Tensor:
+    """RMSE over the finite pairs."""
+    return torch.sqrt(_masked_mean_error(y_true, y_pred, torch.square))
+
+
+def uncertainty_calibration_error(predictions, targets, uncertainties,
+                                  n_bins: int = 10) -> torch.Tensor:
+    """Expected calibration error with uncertainty-quantile bins: errors and
+    uncertainties averaged over the output dims, confidence 1 - u and
+    accuracy 1 - |err| per bin, ECE = Σ_b w_b |conf_b - acc_b|; 1.0 with
+    fewer finite rows than bins. Bins are [n_bins, N] mask matrices. As in
+    the reference, a non-finite row (its u set to +inf) turns the bin sums
+    into 0·inf = NaN, so the result is NaN unless every row is finite;
+    `ece_np` drops such rows instead."""
+    predictions = torch.as_tensor(predictions)
+    targets = torch.as_tensor(targets)
+    uncertainties = torch.as_tensor(uncertainties)
+    errors = (predictions - targets).abs()
+    if errors.dim() > 1:
+        errors = errors.mean(dim=tuple(range(1, errors.dim())))
+        uncertainties = uncertainties.mean(
+            dim=tuple(range(1, uncertainties.dim())))
+    errors, uncertainties = errors.reshape(-1), uncertainties.reshape(-1)
+
+    mask = _valid_mask(errors, uncertainties)
+    # Invalid rows go to +inf, outside every bin.
+    u = torch.where(mask, uncertainties, torch.full_like(uncertainties, torch.inf))
+    e = torch.where(mask, errors, torch.zeros_like(errors))
+    finite_u = torch.where(mask, uncertainties,
+                           torch.full_like(uncertainties, torch.nan))
+    q = torch.linspace(0.0, 1.0, n_bins + 1, dtype=finite_u.dtype,
+                       device=finite_u.device)
+    edges = torch.nanquantile(finite_u, q)
+    edges[0] = 0.0
+    edges[-1] = torch.where(mask, uncertainties,
+                            torch.full_like(uncertainties, -torch.inf)).max() + 1e-6
+
+    in_bin = ((u[None, :] >= edges[:-1, None])
+              & (u[None, :] < edges[1:, None])).float()
+    counts = in_bin.sum(dim=1)
+    safe = torch.clamp(counts, min=1.0)
+    avg_conf = 1.0 - (in_bin * u[None, :]).sum(dim=1) / safe
+    avg_acc = 1.0 - (in_bin * e[None, :]).sum(dim=1) / safe
+    total = torch.clamp(mask.float().sum(), min=1.0)
+    per_bin = torch.where(counts > 0, (avg_conf - avg_acc).abs(),
+                          torch.zeros_like(counts))
+    ece = (counts / total * per_bin).sum()
+    return torch.where(mask.sum() < n_bins, torch.ones_like(ece), ece)
 
 
 def ccc_np(y_true: np.ndarray, y_pred: np.ndarray) -> float:
@@ -150,3 +291,12 @@ def statistical_significance_test(predictions1: np.ndarray, targets: np.ndarray,
     return {"t_statistic": float(t_stat), "p_value": float(p_value),
             "cohens_d": cohens_d, "effect_size": effect,
             "significant": bool(p_value < alpha), "alpha": alpha}
+
+
+def cross_dataset_transfer_effectiveness(source_performance: float,
+                                         target_performance: float) -> float:
+    """target / source performance clamped to [0, 1]; 0 when the source's is
+    not positive."""
+    if source_performance <= 0:
+        return 0.0
+    return max(0.0, min(1.0, target_performance / source_performance))

@@ -1,9 +1,10 @@
 """Normal-Inverse-Gamma (NIG) evidential math.
 
 Port of `tpu_deer/core/nig.py`: the parameter constraints, the
-aleatoric/epistemic decomposition, the closed-form Student-t E|y - mu|, and
-the training half (the v1 and v2 NLLs, evidence regularizers and KL-style
-regularizers, all elementwise; reduce with a mean outside).
+aleatoric/epistemic decomposition, the closed-form Student-t E|y - mu|, the
+predictive interval, and the training half (the v1 and v2 NLLs, evidence
+regularizers and KL-style regularizers, all elementwise; reduce with a mean
+outside).
 """
 
 from __future__ import annotations
@@ -70,6 +71,30 @@ def nig_expected_abs_error(p: NIGParams) -> torch.Tensor:
         - torch.log(df - 1.0)
     )
     return scale * (2.0 / math.sqrt(math.pi) * torch.exp(log_mad))
+
+
+def nig_predictive_interval(p: NIGParams, coverage: float = 0.95
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric interval mu ± z·std from the Student-t marginal
+    St(mu, beta(1 + nu)/(nu alpha), 2 alpha): std from the t variance
+    (df / (df - 2) · scale², or 10 · scale² for df <= 2), z the normal
+    quantile of the two-sided coverage (for reporting)."""
+    df = 2.0 * p.alpha
+    scale2 = p.beta * (1.0 + p.nu) / (p.nu * p.alpha)
+    var = torch.where(df > 2.0, df / torch.clamp(df - 2.0, min=EPS) * scale2,
+                      scale2 * 10.0)
+    std = torch.sqrt(var)
+    z = math.sqrt(2.0) * _erfinv_scalar(coverage)
+    return p.mu - z * std, p.mu + z * std
+
+
+def _erfinv_scalar(x: float) -> float:
+    """Inverse error function of a host constant (Winitzki's approximation,
+    a = 0.147)."""
+    a = 0.147
+    ln1mx2 = math.log(1.0 - x * x)
+    term = 2.0 / (math.pi * a) + ln1mx2 / 2.0
+    return math.copysign(math.sqrt(math.sqrt(term * term - ln1mx2 / a) - term), x)
 
 
 def nig_nll(p: NIGParams, targets: torch.Tensor) -> torch.Tensor:

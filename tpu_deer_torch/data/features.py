@@ -1,4 +1,4 @@
-"""Multimodal feature extraction for serving: audio, video, text → 84/256/768-d.
+"""Multimodal feature extraction: audio, video, text → 84/256/768-d.
 
 Port of `tpu_deer/data/features.py`:
 
@@ -6,14 +6,20 @@ Port of `tpu_deer/data/features.py`:
     bucket runs as one batch through the fused front-end: one launch of
     kernel K1 per bucket on the card.
   * video — 8x8 spatial-grid statistics of grayscale frames pooled over time
-    into 256-d (numpy, from frames; decoding a video file is not ported).
-  * text — the deterministic hashed word/bigram projection into 768-d. The
-    BERT and MLM-encoder backends are not ported yet and raise.
+    into 256-d (numpy); `extract(video_path)` decodes up to 32 evenly
+    spaced frames with OpenCV, imported when called. Any decode failure
+    (no `cv2`, an unreadable file) warns and gives zeros, as the
+    reference's does.
+  * text — a corpus-MLM-pretrained encoder (`train/text_pretrain.py`) saved
+    by the port, from `encoder_dir` or $TPU_DEER_TEXT_ENCODER_DIR, else the
+    deterministic hashed word/bigram projection into 768-d. A BERT
+    directory (`bert_dir`, $TPU_DEER_BERT_DIR) is not ported and raises.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import re
 from typing import Optional, Sequence
@@ -27,6 +33,8 @@ from tpu_deer_torch.ops.audio_frontend import (
     AudioFrontendConfig,
     extract_utterance_features_batch,
 )
+
+logger = logging.getLogger(__name__)
 
 AUDIO_DIM = FEATURE_DIM  # 84
 VIDEO_DIM = 256
@@ -79,7 +87,8 @@ class AudioFeatureExtractor:
 class VideoFeatureExtractor:
     """256-d video features: 8x8 spatial grid statistics."""
 
-    def __init__(self, grid: int = 8):
+    def __init__(self, max_frames: int = 32, grid: int = 8):
+        self.max_frames = max_frames
         self.grid = grid
 
     def extract_from_frames(self, frames: np.ndarray) -> np.ndarray:
@@ -104,34 +113,80 @@ class VideoFeatureExtractor:
         std = feat.std()
         return (feat - feat.mean()) / (std + 1e-8)
 
+    def extract(self, video_path: str) -> np.ndarray:
+        """Up to `max_frames` evenly spaced frames of the file, grayscale,
+        resized to 64x64 → 256-d; zeros with a warning when it cannot be
+        decoded."""
+        try:
+            import cv2
+
+            cap = cv2.VideoCapture(video_path)
+            n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) or 0
+            take = np.linspace(0, max(n - 1, 0), min(self.max_frames, max(n, 1)))
+            frames = []
+            for idx in take.astype(int):
+                cap.set(cv2.CAP_PROP_POS_FRAMES, int(idx))
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
+                frames.append(cv2.resize(gray, (64, 64)).astype(np.float32) / 255.0)
+            cap.release()
+            if not frames:
+                raise ValueError("no decodable frames")
+            return self.extract_from_frames(np.stack(frames))
+        except Exception as e:  # noqa: BLE001 — the reference's contract
+            logger.warning(f"video feature extraction FAILED for {video_path}: "
+                           f"{e} — emitting zeros")
+            return np.zeros(VIDEO_DIM, dtype=np.float32)
+
 
 _TOKEN_RE = re.compile(r"[a-z']+")
 
 
 class TextFeatureExtractor:
-    """768-d hashed text features: signed feature hashing of words + bigrams
-    into 768 bins, l2-normalized. Deterministic and dependency-free.
+    """768-d text features from the best backend at hand:
 
-    The reference also serves a local BERT (`bert_dir`,
-    $TPU_DEER_BERT_DIR) or an MLM-pretrained encoder (`encoder_dir`,
-    $TPU_DEER_TEXT_ENCODER_DIR). Those backends are not ported yet: asking
-    for one, by argument or environment, raises rather than quietly
-    serving hashed features.
+    1. a corpus-MLM-pretrained TextSequenceEncoder saved by
+       `train/text_pretrain.py:TextEncoderFeaturizer` (`encoder_dir` or
+       $TPU_DEER_TEXT_ENCODER_DIR), run on `device` (None = the CUDA card);
+       its features are padded or cut to 768;
+    2. signed feature hashing of words + bigrams into 768 bins,
+       l2-normalized: deterministic and dependency-free.
+
+    The reference serves a local BERT first (`bert_dir`,
+    $TPU_DEER_BERT_DIR); that backend is not ported, and asking for it
+    raises. `bert` is therefore always None, and `encoder` is set by the
+    corpus loaders' MLM bootstrap.
     """
 
     def __init__(self, bert_dir: Optional[str] = None,
-                 encoder_dir: Optional[str] = None):
-        requested = {
-            "bert_dir": bert_dir or os.environ.get("TPU_DEER_BERT_DIR"),
-            "encoder_dir": encoder_dir
-            or os.environ.get("TPU_DEER_TEXT_ENCODER_DIR"),
-        }
-        for name, value in requested.items():
-            if value:
-                raise NotImplementedError(
-                    f"{name}={value!r}: only the hashed text backend is "
-                    f"ported so far"
-                )
+                 encoder_dir: Optional[str] = None,
+                 device: DeviceLike = None):
+        bert_dir = bert_dir or os.environ.get("TPU_DEER_BERT_DIR")
+        if bert_dir:
+            raise NotImplementedError(
+                f"bert_dir={bert_dir!r}: the BERT text backend is not ported "
+                f"(its weights are not in the repo)")
+        self.bert = None
+        self.encoder = None
+        encoder_dir = encoder_dir or os.environ.get("TPU_DEER_TEXT_ENCODER_DIR")
+        if encoder_dir and os.path.isdir(encoder_dir):
+            from tpu_deer_torch.train.text_pretrain import TextEncoderFeaturizer
+
+            device = resolve_device(device)
+            try:
+                self.encoder = TextEncoderFeaturizer.load(encoder_dir, device=device)
+                logger.info(f"text features: MLM-pretrained encoder from "
+                            f"{encoder_dir}")
+            except Exception as e:  # noqa: BLE001 — the reference's fallback
+                logger.warning(f"pretrained text encoder unavailable ({e}); "
+                               "using hashed features")
+
+    @property
+    def backend(self) -> str:
+        """The live backend: 'mlm' or 'hashed'."""
+        return "mlm" if self.encoder is not None else "hashed"
 
     @staticmethod
     def _hash_token(token: str) -> tuple[int, float]:
@@ -152,13 +207,33 @@ class TextFeatureExtractor:
         norm = np.linalg.norm(vec)
         return vec / norm if norm > 0 else vec
 
+    @staticmethod
+    def _fit_dim(vec: np.ndarray) -> np.ndarray:
+        """Pad or cut a backend's feature width to TEXT_DIM."""
+        if vec.shape[-1] == TEXT_DIM:
+            return vec
+        out = np.zeros(TEXT_DIM, dtype=np.float32)
+        n = min(TEXT_DIM, vec.shape[-1])
+        out[:n] = vec[:n]
+        return out
+
     def extract(self, text: str) -> np.ndarray:
         if not text:
             return np.zeros(TEXT_DIM, dtype=np.float32)
+        if self.encoder is not None:
+            return self._fit_dim(self.encoder.extract(text))
         return self._hashed(text)
 
     def extract_batch(self, texts: Sequence[str]) -> np.ndarray:
-        return np.stack([self.extract(t) for t in texts])
+        if self.encoder is None:
+            return np.stack([self.extract(t) for t in texts])
+        feats = self.encoder.extract_batch(list(texts))
+        if feats.shape[-1] != TEXT_DIM:
+            feats = np.stack([self._fit_dim(v) for v in feats])
+        for i, t in enumerate(texts):  # empty text stays zeros, as extract()
+            if not t:
+                feats[i] = 0.0
+        return feats
 
 
 class MultimodalFeatureExtractor:
@@ -172,4 +247,4 @@ class MultimodalFeatureExtractor:
     ):
         self.audio = AudioFeatureExtractor(audio_cfg, device=device)
         self.video = VideoFeatureExtractor()
-        self.text = TextFeatureExtractor(bert_dir)
+        self.text = TextFeatureExtractor(bert_dir, device=device)

@@ -1,26 +1,33 @@
-"""Raw-media corpus in the IEMOCAP layout: a seeded fixture generator and the
-loader that turns it into the padded arrays the raw trainer consumes.
+"""Raw-media corpora in the IEMOCAP, RAVDESS and MELD layouts: seeded fixture
+generators and the loaders that turn them into the padded arrays the raw
+trainer consumes.
 
-Port of the IEMOCAP half of `tpu_deer/data/raw_corpus.py`, with its own
-copy of the annotation parser (`tpu_deer/data/iemocap.py:parse_annotations`).
-The same seed and arguments give the same files and bit-identical arrays as
-the reference. The layout:
+Port of `tpu_deer/data/raw_corpus.py`. The same seed and arguments give the
+same files and bit-identical arrays as the reference. The layouts:
 
-  Session{1..5}/dialog/EmoEvaluation/<dialog>.txt   VAD on IEMOCAP's 1..5 scale
-  Session{1..5}/dialog/transcriptions/<dialog>.txt
-  Session{1..5}/sentences/wav/<dialog>/<utt>.wav    16-bit PCM
-  Session{1..5}/sentences/video/<dialog>/<utt>.npy  frames [T, H, W, 3]
+  * IEMOCAP: Session{1..5}/dialog/{EmoEvaluation,transcriptions}/<dialog>.txt
+    (VAD on the 1..5 scale), sentences/wav/<dialog>/<utt>.wav (16-bit PCM)
+    and sentences/video/<dialog>/<utt>.npy (frames [T, H, W, 3]); sessions
+    1-3 train, 4 val, 5 test.
+  * RAVDESS: Actor_01..24/ of filename-coded wavs (03-01-EE-II-SS-RR-AA.wav,
+    audio-only) with a `<stem>.npy` decoded-frames sidecar standing in for
+    the full-AV mp4; the text is the statement the code names; splits by
+    actor, 1-18 / 19-21 / 22-24.
+  * MELD: {train,dev,test}_sent_emo.csv (Sr No., Utterance, Emotion,
+    Dialogue_ID, Utterance_ID) and per-split media dirs of diaD_uttU.wav and
+    diaD_uttU.npy; splits by CSV; a missing wav is zeros, logged.
 
-Splits: sessions 1-3 train, 4 val, 5 test. The fixture's media encode the
-label (pitch and energy track arousal, the second harmonic dominance, frame
-brightness valence, inter-frame motion arousal; transcripts carry emotion
-keywords), so training to a nonzero CCC is a real check. The RAVDESS and
-MELD layouts are not ported yet.
+The fixtures' media encode the label (pitch and energy track arousal, the
+second harmonic dominance, frame brightness valence, inter-frame motion
+arousal; IEMOCAP and MELD transcripts carry emotion keywords), so training
+to a nonzero CCC is a real check. A joint run loads every corpus under one
+vocabulary (`merge_vocabs`) and concatenates the splits with a
+`dataset_id` column (`combine_raw_splits`).
 """
 
 from __future__ import annotations
 
-import re
+import logging
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
@@ -28,7 +35,10 @@ from typing import Optional
 import numpy as np
 
 from tpu_deer_torch.data.audio_io import load_wav
+from tpu_deer_torch.data.iemocap import parse_annotations
 from tpu_deer_torch.data.vocab import CorpusVocab
+
+logger = logging.getLogger(__name__)
 
 # Emotion prototypes for the fixture generator: (valence, arousal, dominance).
 _FIXTURE_CATEGORIES = {
@@ -43,63 +53,6 @@ _FIXTURE_WORDS = {
     "anger": ["furious", "outraged", "livid", "irate"],
     "calm": ["peaceful", "serene", "relaxed", "quiet"],
 }
-
-EMO_LINE = re.compile(
-    r"\[(\d+\.\d+)\s*-\s*(\d+\.\d+)\]\t(\S+)\t(\S+)\t\[(-?\d+\.?\d*),\s*(-?\d+\.?\d*),\s*(-?\d+\.?\d*)\]"
-)
-TRANSCRIPT_LINE = re.compile(r"(\S+)\s+\[[\d.]+-[\d.]+\]:\s*(.*)")
-
-
-def _speaker_id(utt_id: str, session: int) -> str:
-    """Ses01F_impro01_F000 → speaker 'Ses01_F' (the F/M of the utterance)."""
-    turn = utt_id.split("_")[-1]
-    gender = turn[0] if turn and turn[0] in "FM" else "X"
-    return f"Ses{session:02d}_{gender}"
-
-
-def parse_annotations(root: Path) -> list[dict]:
-    """Walk all sessions; returns one dict per annotated utterance with VAD
-    mapped from 1..5 to [-1, 1] by (x - 3) / 2."""
-    samples = []
-    for session in range(1, 6):
-        sdir = root / f"Session{session}"
-        emo_dir = sdir / "dialog" / "EmoEvaluation"
-        trans_dir = sdir / "dialog" / "transcriptions"
-        if not emo_dir.is_dir():
-            continue
-        for emo_file in sorted(emo_dir.glob("*.txt")):
-            dialog = emo_file.stem
-            transcripts: dict[str, str] = {}
-            tfile = trans_dir / f"{dialog}.txt"
-            if tfile.exists():
-                for line in tfile.read_text(errors="replace").splitlines():
-                    m = TRANSCRIPT_LINE.match(line)
-                    if m:
-                        transcripts[m.group(1)] = m.group(2)
-            for line in emo_file.read_text(errors="replace").splitlines():
-                m = EMO_LINE.match(line)
-                if not m:
-                    continue
-                utt_id = m.group(3)
-                v, a, d = (float(m.group(i)) for i in (5, 6, 7))
-                wav = sdir / "sentences" / "wav" / dialog / f"{utt_id}.wav"
-                avi = sdir / "dialog" / "avi" / "DivX" / f"{dialog}.avi"
-                samples.append({
-                    "utt_id": utt_id,
-                    "session": session,
-                    "speaker": _speaker_id(utt_id, session),
-                    "emotion": m.group(4),
-                    "valence": (v - 3.0) / 2.0,
-                    "arousal": (a - 3.0) / 2.0,
-                    "dominance": (d - 3.0) / 2.0,
-                    "wav": str(wav) if wav.exists() else None,
-                    "avi": str(avi) if avi.exists() else None,
-                    "t1": float(m.group(1)),
-                    "t2": float(m.group(2)),
-                    "text": transcripts.get(utt_id, ""),
-                })
-    return samples
-
 
 def _write_wav(path: Path, signal: np.ndarray, sr: int = 16000) -> None:
     from scipy.io import wavfile
@@ -173,6 +126,111 @@ def generate_raw_fixture(root: str, n_train: int = 96, n_val: int = 32,
             "\n".join(emo_lines))
         (sdir / "dialog" / "transcriptions" / f"{dialog}.txt").write_text(
             "\n".join(trans_lines))
+    return root
+
+
+def generate_raw_fixture_ravdess(
+    root: str,
+    n_per_actor: int = 8,
+    duration_s: float = 0.8,
+    n_frames: int = 4,
+    image_size: int = 16,
+    sample_rate: int = 16000,
+    seed: int = 0,
+) -> str:
+    """Write a learnable raw corpus in the RAVDESS layout: Actor_01..24/
+    dirs of filename-coded wavs (03-01-EE-II-SS-RR-AA.wav, audio-only
+    modality 03) with a
+    `<stem>.npy` decoded-frames sidecar per utterance. Media is synthesized
+    from the emotion-code VAD table (data.ravdess.EMOTION_VAD), so
+    the loader's labels are recoverable from the media. Returns root."""
+    from tpu_deer_torch.data.ravdess import EMOTION_VAD
+
+    rng = np.random.default_rng(seed)
+    root_path = Path(root)
+    t = np.arange(int(duration_s * sample_rate)) / sample_rate
+    emotions = sorted(EMOTION_VAD)
+    for actor in range(1, 25):
+        adir = root_path / f"Actor_{actor:02d}"
+        adir.mkdir(parents=True, exist_ok=True)
+        for i in range(n_per_actor):
+            emotion = emotions[int(rng.integers(len(emotions)))]
+            intensity = 1 + (i % 2)
+            statement = 1 + ((i // 2) % 2)
+            repetition = 1 + i // 4
+            stem = (
+                f"03-01-{emotion:02d}-{intensity:02d}-{statement:02d}-"
+                f"{repetition:02d}-{actor:02d}"
+            )
+            v, a, d = EMOTION_VAD[emotion]
+            sig, frames = _synth_media(v, a, d, rng, t, n_frames, image_size)
+            _write_wav(adir / f"{stem}.wav", sig, sample_rate)
+            np.save(adir / f"{stem}.npy", frames)
+    return root
+
+
+def generate_raw_fixture_meld(
+    root: str,
+    n_train: int = 96,
+    n_val: int = 32,
+    n_test: int = 32,
+    duration_s: float = 0.8,
+    n_frames: int = 4,
+    image_size: int = 16,
+    sample_rate: int = 16000,
+    seed: int = 0,
+) -> str:
+    """Write a learnable raw corpus in the MELD layout: {train,dev,test}_
+    sent_emo.csv (Sr No./Utterance/Emotion/Dialogue_ID/Utterance_ID) and
+    per-split media dirs holding diaD_uttU.wav and diaD_uttU.npy frame
+    sidecars. Returns root."""
+    import csv
+
+    from tpu_deer_torch.data.meld import EMOTION_VAD, SPLIT_FILES
+
+    # Emotion-keyword templates so the TEXT channel carries label signal
+    # (MELD is text-first; its utterances really do carry the emotion).
+    words = {
+        "joy": ["wonderful", "delighted", "great", "cheerful"],
+        "sadness": ["terrible", "mournful", "awful", "gloomy"],
+        "anger": ["furious", "outraged", "livid", "irate"],
+        "fear": ["terrified", "scared", "panicked", "afraid"],
+        "surprise": ["astonished", "stunned", "unexpected", "amazed"],
+        "disgust": ["revolting", "gross", "nauseating", "vile"],
+        "neutral": ["ordinary", "routine", "plain", "unremarkable"],
+    }
+    rng = np.random.default_rng(seed)
+    root_path = Path(root)
+    t = np.arange(int(duration_s * sample_rate)) / sample_rate
+    emotions = sorted(EMOTION_VAD)
+    counts = {"train": n_train, "val": n_val, "test": n_test}
+    sr_no = 0
+    for split, (csv_name, media_dir) in SPLIT_FILES.items():
+        mdir = root_path / media_dir
+        mdir.mkdir(parents=True, exist_ok=True)
+        rows = []
+        for i in range(counts[split]):
+            sr_no += 1
+            emotion = emotions[int(rng.integers(len(emotions)))]
+            v, a, d = EMOTION_VAD[emotion]
+            dia, utt = i // 4, i % 4
+            sig, frames = _synth_media(v, a, d, rng, t, n_frames, image_size)
+            _write_wav(mdir / f"dia{dia}_utt{utt}.wav", sig, sample_rate)
+            np.save(mdir / f"dia{dia}_utt{utt}.npy", frames)
+            w1, w2 = rng.choice(words[emotion], size=2, replace=False)
+            rows.append(
+                {
+                    "Sr No.": sr_no,
+                    "Utterance": f"honestly that was {w1} and {w2} to me",
+                    "Emotion": emotion,
+                    "Dialogue_ID": dia,
+                    "Utterance_ID": utt,
+                }
+            )
+        with open(root_path / csv_name, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer.writeheader()
+            writer.writerows(rows)
     return root
 
 
@@ -266,3 +324,142 @@ def load_raw_corpus(root: str, vocab: Optional[CorpusVocab] = None,
         })
     return _assemble_splits(records, vocab, max_audio_s, sample_rate,
                             max_video_frames, image_size, max_tokens)
+
+
+def load_raw_ravdess(
+    root: str,
+    vocab: Optional[CorpusVocab] = None,
+    max_audio_s: float = 1.0,
+    sample_rate: int = 16000,
+    max_video_frames: int = 4,
+    image_size: int = 16,
+    max_tokens: int = 16,
+) -> tuple[dict[str, dict[str, np.ndarray]], CorpusVocab]:
+    """Parse a RAVDESS-layout corpus (filename-coded wavs) into raw arrays.
+    Labels come from the emotion-code table (data.ravdess.EMOTION_VAD);
+    text is the statement
+    sentence the code names; video comes from a `<stem>.npy` decoded-frames
+    sidecar when present. Speaker-independent actor splits (1-18/19-21/
+    22-24, data.ravdess._split_for_actor)."""
+    from tpu_deer_torch.data.ravdess import (
+        EMOTION_VAD, STATEMENTS, _split_for_actor, parse_filename,
+    )
+
+    records: dict[str, list] = {}
+    for wav in sorted(Path(root).rglob("*.wav")):
+        meta = parse_filename(wav.stem)
+        if meta is None or meta["modality"] == 2:
+            continue
+        sidecar = wav.with_suffix(".npy")
+        records.setdefault(_split_for_actor(meta["actor"]), []).append(
+            {
+                "wav": wav,
+                "frames_path": sidecar if sidecar.exists() else None,
+                "text": STATEMENTS.get(meta["statement"], ""),
+                "label": list(EMOTION_VAD[meta["emotion"]]),
+            }
+        )
+    if not records:
+        raise FileNotFoundError(f"no RAVDESS-coded wav files under {root}")
+    return _assemble_splits(
+        records, vocab, max_audio_s, sample_rate, max_video_frames,
+        image_size, max_tokens,
+    )
+
+
+def load_raw_meld(
+    root: str,
+    vocab: Optional[CorpusVocab] = None,
+    max_audio_s: float = 1.0,
+    sample_rate: int = 16000,
+    max_video_frames: int = 4,
+    image_size: int = 16,
+    max_tokens: int = 16,
+) -> tuple[dict[str, dict[str, np.ndarray]], CorpusVocab]:
+    """Parse a MELD-layout corpus ({train,dev,test}_sent_emo.csv + per-split
+    media dirs) into raw arrays. Utterance text is real (MELD is
+    text-first); audio/video come from diaD_uttU.wav / diaD_uttU.npy in the
+    split's media dir when present (missing media → zeros, logged). Splits
+    follow MELD's own CSVs."""
+    from tpu_deer_torch.data.meld import EMOTION_VAD, SPLIT_FILES, _read_csv
+
+    root_path = Path(root)
+    records: dict[str, list] = {}
+    missing_media = 0
+    for split, (csv_name, media_dir) in SPLIT_FILES.items():
+        csv_path = root_path / csv_name
+        if not csv_path.exists():
+            continue
+        mdir = root_path / media_dir
+        for row in _read_csv(csv_path):
+            emotion = (row.get("Emotion") or "").strip().lower()
+            if emotion not in EMOTION_VAD:
+                continue
+            stem = (
+                f"dia{(row.get('Dialogue_ID') or '').strip()}"
+                f"_utt{(row.get('Utterance_ID') or '').strip()}"
+            )
+            wav = mdir / f"{stem}.wav"
+            sidecar = mdir / f"{stem}.npy"
+            if not wav.exists():
+                missing_media += 1
+                wav = None
+            records.setdefault(split, []).append(
+                {
+                    "wav": wav,
+                    "frames_path": sidecar if sidecar.exists() else None,
+                    "text": row.get("Utterance") or "",
+                    "label": list(EMOTION_VAD[emotion]),
+                }
+            )
+    if not records:
+        raise FileNotFoundError(f"no MELD CSV files under {root}")
+    if missing_media:
+        logger.warning(
+            f"MELD raw: {missing_media} utterances have no wav in the media "
+            "dirs — audio channel zero-filled for those (NOT random noise)"
+        )
+    return _assemble_splits(
+        records, vocab, max_audio_s, sample_rate, max_video_frames,
+        image_size, max_tokens,
+    )
+
+
+def merge_vocabs(vocabs, max_length: int = 16) -> CorpusVocab:
+    """Union of the non-special tokens of several corpus vocabularies
+    (deterministic sorted order) — the shared vocabulary joint multi-corpus
+    raw runs load every corpus under."""
+    from tpu_deer_torch.data.vocab import N_SPECIAL
+
+    tokens = sorted({t for v in vocabs for t in v.itos[N_SPECIAL:]})
+    return CorpusVocab(tokens, max_length=max_length)
+
+
+def combine_raw_splits(
+    corpora: dict[str, dict[str, dict[str, np.ndarray]]],
+) -> dict[str, dict[str, np.ndarray]]:
+    """Concatenate per-corpus split dicts (all loaded under ONE shared
+    vocabulary and identical media geometry) into a joint corpus, adding a
+    `dataset_id` column (order = sorted corpus names) so joint runs can
+    report per-corpus metrics."""
+    names = sorted(corpora)
+    out: dict[str, dict[str, np.ndarray]] = {}
+    for split in ("train", "val", "test"):
+        present = [n for n in names if split in corpora[n]]
+        if not present:
+            continue
+        keys = corpora[present[0]][split].keys()
+        merged = {
+            k: np.concatenate([corpora[n][split][k] for n in present])
+            for k in keys
+        }
+        merged["dataset_id"] = np.concatenate(
+            [
+                np.full(
+                    len(corpora[n][split]["labels"]), names.index(n), np.int32
+                )
+                for n in present
+            ]
+        )
+        out[split] = merged
+    return out

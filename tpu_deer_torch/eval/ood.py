@@ -188,6 +188,18 @@ class MahalanobisOOD:
         st = self._require_fit()
         return st.mean, st.whitener
 
+    def report(self, features_in: np.ndarray,
+               probes: dict[str, np.ndarray]) -> dict:
+        """The median train score, the 1% FPR threshold and the AUROC of
+        each probe's features against `features_in`."""
+        s_in = self.score(features_in)
+        return {
+            "train_score_p50": float(np.median(self._require_fit().train_scores)),
+            "threshold_fpr01": self.threshold(0.01),
+            "auroc": {name: ood_auroc(s_in, self.score(f))
+                      for name, f in probes.items()},
+        }
+
     # -- persistence ---------------------------------------------------------
     def save(self, path: str) -> None:
         st = self._require_fit()

@@ -69,3 +69,10 @@ class StatisticalValidator:
                                            self.confidence, self.seed),
             }
         return out
+
+    def compare_models(self, predictions_a: np.ndarray,
+                       predictions_b: np.ndarray, targets: np.ndarray) -> dict:
+        """Paired t-test and Cohen's d between two models' absolute errors
+        (`core.metrics.statistical_significance_test`)."""
+        return metrics_lib.statistical_significance_test(
+            predictions_a, targets, predictions_b)

@@ -124,6 +124,12 @@ class CompleteDEERModel(nn.Module):
         return out
 
 
+def get_predictions_and_uncertainties(outputs: dict
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mu_all, calibrated_uncertainty) of the model's outputs."""
+    return outputs["mu_all"], outputs["calibrated_uncertainty"]
+
+
 def count_parameters(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 

@@ -208,7 +208,8 @@ def sinusoidal_positions(t: int, dim: int,
 class TextSequenceEncoder(nn.Module):
     """Token ids [B, T] → (utterance embedding [B, output_dim], pooling
     weights [B, T][, token states [B, T, model_dim] with
-    return_sequence=True])."""
+    return_sequence=True][, the tied masked-token logits token states @
+    embedding.T [B, T, vocab] with mlm_logits=True, after the states])."""
 
     def __init__(self, vocab_size: int = 30522, output_dim: int = 512,
                  model_dim: int = 256, num_layers: int = 4,
@@ -227,7 +228,7 @@ class TextSequenceEncoder(nn.Module):
 
     def forward(self, token_ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
-                return_sequence: bool = False):
+                return_sequence: bool = False, mlm_logits: bool = False):
         x = embedding_lookup(token_ids.long(), self.embed.weight)
         x = x + sinusoidal_positions(token_ids.shape[1], self.model_dim,
                                      x.device)[None]
@@ -236,6 +237,10 @@ class TextSequenceEncoder(nn.Module):
             x = block(x, bool_mask)
         pooled, attn = self.pool(x, bool_mask)
         out = self.norm(self.out_proj(pooled))
+        if mlm_logits:
+            # The embedding takes a gradient from the lookup (its kernel)
+            # and one from this product; autograd adds them.
+            return out, attn, x, x @ self.embed.weight.T
         if return_sequence:
             return out, attn, x
         return out, attn

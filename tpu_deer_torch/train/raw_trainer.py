@@ -86,7 +86,7 @@ class RawSequenceTrainer:
                                lambda count: config.learning_rate,
                                config.weight_decay, config.gradient_clip)
         self.history: dict[str, list] = {"train_loss": [], "val_ccc": []}
-        self._staged: dict[int, dict] = {}
+        self._staged: dict[int, tuple] = {}  # id → (arrays, staged)
         # Dropout draws (seeded_dropout), one seed a step.
         self.generator = torch.Generator().manual_seed(config.seed)
 
@@ -114,9 +114,12 @@ class RawSequenceTrainer:
     def _stage(self, arrays: dict) -> dict:
         key = id(arrays)
         if key not in self._staged:
-            self._staged[key] = {k: torch.from_numpy(np.asarray(arrays[k])).to(self.device)
-                                 for k in BATCH_KEYS}
-        return self._staged[key]
+            # The entry holds `arrays` too, so that its id is not reused (a
+            # dict can be neither hashed nor weakly referenced).
+            self._staged[key] = (arrays, {
+                k: torch.from_numpy(np.asarray(arrays[k])).to(self.device)
+                for k in BATCH_KEYS})
+        return self._staged[key][1]
 
     def _gather(self, staged: dict, idx: np.ndarray) -> dict:
         index = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)

@@ -84,6 +84,7 @@ import copy
 import dataclasses
 import math
 import time
+import weakref
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
@@ -269,8 +270,8 @@ class DEERTrainer:
             "train_loss": [], "val_loss": [], "val_ccc": [], "val_mae": [],
             "val_ece": [], "learning_rate": []}
         self._best_state = None  # spike rollback: copy of the best state
-        self._staged: dict[int, Optional[dict]] = {}
-        self._combined: dict[tuple, Optional[tuple]] = {}
+        self._staged: dict[int, Optional[dict]] = {}  # id → arrays or None
+        self._combined: dict[tuple, Optional[tuple]] = {}  # ids → staged
         self._run: Optional[_FusedRun] = None
         self.graph_replays = 0  # fused steps replayed from a CUDA graph
         self.graph_capture_s = 0.0  # host seconds spent capturing them
@@ -311,6 +312,21 @@ class DEERTrainer:
         return copy.deepcopy(self.state_dict())
 
     # -- device-resident data ------------------------------------------------
+    # The caches below are keyed by the datasets' ids (a dataset is not
+    # hashable). An entry goes when one of its datasets is freed, before a
+    # new dataset can take the id, and its device arrays go with it; the
+    # finalizers hold the trainer weakly, so they keep no arrays alive.
+    def _drop_when_freed(self, cache: str, key, datasets) -> None:
+        trainer = weakref.ref(self)
+
+        def drop():
+            t = trainer()
+            if t is not None:
+                getattr(t, cache).pop(key, None)
+
+        for d in datasets:
+            weakref.finalize(d, drop)
+
     def _stage(self, dataset: ArrayDataset) -> Optional[dict]:
         key = id(dataset)
         if key not in self._staged:
@@ -319,6 +335,7 @@ class DEERTrainer:
             self._staged[key] = None if nbytes > self.STAGE_BYTES_LIMIT else {
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in arrays.items()}
+            self._drop_when_freed("_staged", key, [dataset])
         return self._staged[key]
 
     def _stage_combined(self, datasets: Mapping[str, ArrayDataset]):
@@ -340,6 +357,7 @@ class DEERTrainer:
                          .to(self.device) for n in names]
                 staged[k] = parts[0] if len(parts) == 1 else torch.cat(parts)
             self._combined[key] = (staged, offsets) if staged else None
+            self._drop_when_freed("_combined", key, datasets.values())
         return self._combined[key]
 
     def _batch_from_indices(self, dataset: ArrayDataset, idx: np.ndarray) -> dict:
