@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, streaming, raw-media training,
-feature-level training-to-int8-serving, export and real-corpus paths on one
-NVIDIA card.
+feature-level training-to-int8-serving, export, real-corpus and model-zoo
+paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -185,6 +185,26 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               --raw_dataset` in each layout, K1's in-graph launches; (e)
               CrossValidationEvaluator (2 folds) and AblationStudy (A, A+T)
               at 1 epoch on the flagship.
+ 14. zoo    — the model zoo and the rest of the audio front-end: (a) the
+              flagship with each fusion type (hierarchical, attention,
+              bilinear, concat, adaptive, moe) and the stacked layout at
+              full width, each with the reference's parameter count: 4
+              fused steps at batch 512 on benchmark_v2 rows graphed against
+              4 eager ones from one state (GRAPH_TOL), graphed predict at 1
+              and 256 rows equal to eager in every bit, int8 μ within 0.05
+              of float, step p50s; the stacked forward on stack_params of
+              the trained hierarchical weights against the default forward;
+              (b) the enhanced 84-d vectors of 64 utterances through K1
+              (one launch) against the plain twin within FEAT_TOL, the
+              conv route's products against the plain twin's within
+              K1_TOL (its vectors' disagreement shown), with their times;
+              (c) the native WAV decoder built from native/wavio.cpp and
+              used for 44.1 and 48 kHz stereo wavs (against scipy's
+              samples), 192 decodes in 8 threads native against scipy;
+              (d) UnifiedSequenceEncoder in eval at 2,048 tokens, batch 8:
+              K3a once a text layer, outputs against use_flash=False within
+              K3_TOL; HierarchicalDEERFusionModel at batch 256 graphed
+              against eager.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -195,6 +215,7 @@ from __future__ import annotations
 
 import base64
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -307,6 +328,39 @@ CORPUS_ROWS, CORPUS_PER_ACTOR = (96, 48, 48), 8
 CORPUS_SECONDS = {"iemocap": 4.5, "ravdess": 3.5, "meld": 0.8}
 CORPUS_EPOCHS, CORPUS_BATCH, RAW_CLI_EPOCHS = 2, 32, 2
 CORPUS_NAMES = {"iemocap": "IEMOCAP", "ravdess": "RAVDESS", "meld": "MELD"}
+# Phase 14: the model zoo at the flagship's width (its parameter counts are
+# the reference's, experiments/RESULTS_fusion.md), 4 fused steps each at
+# batch 512 on benchmark_v2 rows (dropout 0.1, lr 1e-4: at the fusion
+# study's 1e-3 without its 64-step warm-up the bilinear fusion's loss jumps
+# to ~1e9 within 8 steps on either package, and int8 then serves a model
+# far from its float one), graphed against eager from one state; graphed
+# predict at ZOO_PREDICT rows.
+ZOO_LAYOUTS = {"hierarchical": {}, "attention": {"fusion_type": "attention"},
+               "bilinear": {"fusion_type": "bilinear"},
+               "concat": {"fusion_type": "concat"},
+               "adaptive": {"fusion_type": "adaptive"},
+               "moe": {"fusion_type": "moe"},
+               "stacked": {"stacked_compute": True}}
+ZOO_COUNTS = {"hierarchical": 3_918_324, "attention": 2_736_117,
+              "bilinear": 36_027_380, "concat": 2_997_236,
+              "adaptive": 37_081_336, "moe": 3_657_720, "stacked": 3_918_324}
+ZOO_BATCH, ZOO_STEPS, ZOO_PREDICT, ZOO_LR = 512, 4, (1, 256), 1e-4
+INT8_MU_TOL = 0.05  # int8 μ against float, as phases 10 and 12 hold it
+# The bilinear form (and the adaptive blend that holds it) leaves the fused
+# features unnormalized (|x| ~ 11 at init, against ~1 for the others), so
+# the per-channel int8 rounding of the heads' first kernels moves μ by up to
+# ~0.09 (the reference's quantize_tree, which the port's equals, does the
+# same): their int8 gap is shown, and the int8 engine held to the float
+# forward of its dequantized weights, as every layout's.
+INT8_UNNORMALIZED = ("bilinear", "adaptive")
+# The enhanced 84-d vectors of 64 voiced utterances of 3 s; 192 decodes of a
+# 44.1 kHz and a 48 kHz stereo wav of 3 s in 8 threads; the unified
+# encoder's text at 2,048 tokens (K3a at inference) for a batch of 8; the
+# standalone hierarchical model at batch 256.
+ENH_UTTERANCES, ENH_SECONDS = 64, 3.0
+DECODES, DECODE_THREADS, DECODE_SECONDS = 192, 8, 3.0
+UNIFIED_B, UNIFIED_T = 8, 2048
+HIER_BATCH = 256
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -3309,6 +3363,294 @@ def phase_corpus(torch, k1, k3, emb):
     print(f"corpus: phase 13 in {time.perf_counter() - t_phase:.1f} s")
 
 
+def zoo_layout(torch, name, kw, rows):
+    """Phase 14 (a) for one layout: its parameter count, 4 fused steps
+    graphed against 4 eager ones from one state, graphed predict against
+    eager at ZOO_PREDICT rows, int8 predict against float. Returns the
+    trained model and its step p50s (ms)."""
+    from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
+    from tpu_deer_torch.models.deer_model import (
+        CompleteDEERModel,
+        DEERModelConfig,
+        count_parameters,
+        create_complete_deer_model,
+        structure,
+    )
+    from tpu_deer_torch.ops.quantization import dequantize_tree, quantize_tree
+    from tpu_deer_torch.serve import InferenceEngine
+    from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
+
+    cfg = DEERModelConfig(dropout=0.1, **kw)
+    n_params = count_parameters(structure(cfg))
+    if n_params != ZOO_COUNTS[name]:
+        raise AssertionError(f"{name}: {n_params:,} parameters, the reference "
+                             f"has {ZOO_COUNTS[name]:,}")
+    tcfg = TrainingConfig(learning_rate=ZOO_LR, batch_size=ZOO_BATCH,
+                          num_epochs=2, warmup_epochs=0, scheduler="constant",
+                          fused_epochs=True, seed=SEED,
+                          dataset_weights={"zoo": 1.0})
+    trainers = {fused: DEERTrainer(
+        create_complete_deer_model(cfg, seed=SEED, device=DEVICE),
+        dataclasses.replace(tcfg, fused_epochs=fused),
+        steps_per_epoch=ZOO_STEPS, device=DEVICE) for fused in (True, False)}
+    graphed, eager = trainers[True], trainers[False]
+    data = ArrayDataset(rows, "zoo")
+    iters = {"zoo": BatchIterator(data, ZOO_BATCH, shuffle=True,
+                                  drop_last=True, seed=SEED)}
+    graphed.train_epoch(iters, 0)  # the warm-up steps and the capture
+    eager.load_state_dict(graphed.state_dict())
+    replays = graphed.graph_replays
+    times = {"graphed": [], "eager": []}
+    saved = (timed_method(DEERTrainer, "_fused_step", times["graphed"], torch),
+             timed_method(DEERTrainer, "_train_step", times["eager"], torch))
+    try:
+        got = graphed.train_epoch(iters, 1)
+        ref = eager.train_epoch(iters, 1)
+    finally:
+        DEERTrainer._fused_step, DEERTrainer._train_step = saved
+    if DEVICE == "cuda" and graphed.graph_replays - replays != ZOO_STEPS:
+        raise AssertionError(f"{name}: {graphed.graph_replays - replays} of "
+                             f"{ZOO_STEPS} steps replayed")
+    want = eager.model.state_dict()
+    err = max(check_close(f"{name} graphed vs eager {k}", v, want[k], *GRAPH_TOL)
+              for k, v in graphed.model.state_dict().items())
+    differ = sum(not torch.equal(v, want[k])
+                 for k, v in graphed.model.state_dict().items())
+    p50 = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    print(f"zoo (a): {name}: {n_params:,} parameters (the reference's); "
+          f"{ZOO_STEPS} graphed vs {ZOO_STEPS} eager steps at batch "
+          f"{ZOO_BATCH}: loss {got['loss']:.7f} vs {ref['loss']:.7f}, "
+          f"parameters max abs diff {err:.3e} ({differ} of {len(want)} "
+          f"tensors differ in any bit); step p50 graphed "
+          f"{p50['graphed']:.3f} ms, eager {p50['eager']:.3f} ms")
+
+    model = graphed.model.eval()
+    feats = tuple(rows[k][:max(ZOO_PREDICT)] for k in ("audio", "video", "text"))
+    live = InferenceEngine(model, batch_buckets=ZOO_PREDICT, device=DEVICE)
+    live.warmup()
+    plain = InferenceEngine(model, batch_buckets=ZOO_PREDICT, device=DEVICE,
+                            graphs=False)
+    for n in ZOO_PREDICT:
+        bits, total, _ = graph_vs_eager(torch, f"{name} predict at {n}",
+                                        live.predict(*(f[:n] for f in feats)),
+                                        plain.predict(*(f[:n] for f in feats)))
+        if bits:
+            raise AssertionError(f"{name} predict at {n}: {bits} of {total} "
+                                 f"elements differ graphed vs eager")
+    int8 = InferenceEngine(model, batch_buckets=ZOO_PREDICT, device=DEVICE,
+                           quantize_weights=True)
+    mu8 = int8.predict(*feats)["mu"]
+    mu = live.predict(*feats)["mu"]
+    deq = CompleteDEERModel(cfg)
+    deq.load_state_dict(dequantize_tree(*quantize_tree(model.state_dict())))
+    with torch.no_grad():
+        mu_deq = deq.to(DEVICE).eval()(*(torch.from_numpy(f).to(DEVICE)
+                                          for f in feats))["mu_all"]
+    err = check_close(f"{name} int8 engine vs the dequantized weights",
+                      torch.from_numpy(mu8), mu_deq.cpu(), *GRAPH_TOL)
+    gap = float(np.abs(mu8 - mu).max())
+    bound = INT8_MU_TOL if name not in INT8_UNNORMALIZED else None
+    if not np.isfinite(mu8).all() or (bound is not None and gap >= bound):
+        raise AssertionError(f"{name} int8: max |Δμ| {gap} (bound {bound})")
+    print(f"zoo (a): {name}: graphed predict at {', '.join(map(str, ZOO_PREDICT))}"
+          f" rows equal to eager in every bit; int8 engine vs the dequantized "
+          f"weights in float max abs err {err:.3e}; int8 vs float max |Δμ| "
+          f"{gap:.4f} ("
+          + (f"bound {bound})" if bound is not None else
+             "shown, not held: the fused features are not normalized)"))
+    return model, p50
+
+
+def phase_zoo(torch, k1, k3):
+    """Phase 14: the model zoo and the rest of the front-end. (a) every
+    fusion type and the stacked layout at the flagship's width, trained,
+    served graphed and in int8, and the stacked forward on stack_params of
+    the hierarchical model's weights; (b) the enhanced 84-d vectors through
+    K1 against the plain twin, and the conv route; (c) the native WAV
+    decoder against scipy; (d) UnifiedSequenceEncoder at 2,048 tokens
+    (K3a) against flash off, and HierarchicalDEERFusionModel graphed
+    against eager."""
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from tpu_deer_torch.data import audio_io, native
+    from tpu_deer_torch.data.synthetic import benchmark_v2, make_synthetic_splits
+    from tpu_deer_torch.graphs import GraphedCall
+    from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
+    from tpu_deer_torch.models.encoders import UnifiedSequenceEncoder
+    from tpu_deer_torch.models.hierarchical_deer import create_hierarchical_deer_model
+    from tpu_deer_torch.models.layers import init_flax_style_
+    from tpu_deer_torch.models.stacked import stack_params
+    from tpu_deer_torch.ops import audio_frontend as taf
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+
+    # (a) the zoo.
+    rows = make_synthetic_splits(benchmark_v2(
+        n_train=ZOO_BATCH * ZOO_STEPS, n_val=8, n_test=8, seed=SEED))["train"]
+    p50s, models = {}, {}
+    for name, kw in ZOO_LAYOUTS.items():
+        t0 = time.perf_counter()
+        model, p50s[name] = zoo_layout(torch, name, kw, rows)
+        if name == "hierarchical":
+            models[name] = model
+        print(f"zoo (a): {name} in {time.perf_counter() - t0:.1f} s")
+    default = models["hierarchical"]
+    stacked = CompleteDEERModel(DEERModelConfig(dropout=0.1, stacked_compute=True))
+    stacked.load_state_dict(stack_params(default.state_dict()))
+    stacked = stacked.to(DEVICE).eval()
+    x = tuple(torch.from_numpy(rows[k][:max(ZOO_PREDICT)]).to(DEVICE)
+              for k in ("audio", "video", "text"))
+    with torch.no_grad():
+        a, b = default(*x), stacked(*x)
+    err = max(check_close(f"stacked vs default {k}", b[k], a[k], *GRAPH_TOL)
+              for k in ("mu_all", "uncertainty_all", "calibrated_uncertainty",
+                        "fused_features"))
+    print(f"zoo (a): the stacked forward on stack_params of the trained "
+          f"hierarchical weights vs the default forward at {max(ZOO_PREDICT)} "
+          f"rows: max abs diff {err:.3e} (rtol, atol {GRAPH_TOL})")
+    print("zoo (a): step p50 ms (graphed / eager): " + "; ".join(
+        f"{n} {p['graphed']:.3f} / {p['eager']:.3f}" for n, p in p50s.items()))
+    del default, stacked, models
+
+    # (b) the enhanced vectors through K1, and the conv route.
+    n = int(ENH_SECONDS * SR)
+    sig = torch.from_numpy(np.stack([
+        voice(rng, n, f0) for f0 in rng.uniform(90.0, 300.0, ENH_UTTERANCES)])
+    ).to(DEVICE)
+    k1.mfcc_signal.launches = 0
+    vec = taf.extract_enhanced_utterance_features(sig)
+    launches = k1.mfcc_signal.launches
+    ref = taf.extract_enhanced_utterance_features(sig, plain=True)
+    conv = taf.extract_enhanced_utterance_features(sig, path="conv")
+    if DEVICE == "cuda" and launches != 1:
+        raise AssertionError(f"enhanced features: {launches} K1 launches, want 1")
+    if vec.shape != (ENH_UTTERANCES, 84) or not torch.isfinite(vec).all():
+        raise AssertionError(f"enhanced features: shape {tuple(vec.shape)}")
+    err_k1 = check_close("enhanced K1 vs plain", vec, ref, *FEAT_TOL)
+    # The conv route is plain torch: cuDNN picks the convolution's
+    # algorithm, which sums the 1,024 window taps in another order than the
+    # plain twin's GEMMs. Its products are held as the reference holds its
+    # own conv route against its frames route (K1_TOL); the vectors'
+    # disagreement is shown (their rolloff and F0 entries are arg-max
+    # functions of the spectrum, so a last-bit change can move a frame's
+    # bin).
+    for name, got, want, tol in zip(
+            ("mfcc", "logmel", "power", "timefeats"),
+            taf.mfcc_from_signal(sig, path="conv"),
+            taf.mfcc_from_signal(sig, plain=True), K1_TOL):
+        check_close(f"conv route {name} vs plain", got, want, *tol)
+    beyond = (conv - ref).abs() > FEAT_TOL[1] + FEAT_TOL[0] * ref.abs()
+    err_conv = float((conv - ref).abs().max())
+    ms = {"K1": time_ms(lambda: taf.extract_enhanced_utterance_features(sig), 5, 1),
+          "plain": time_ms(lambda: taf.extract_enhanced_utterance_features(
+              sig, plain=True), 5, 1),
+          "conv": time_ms(lambda: taf.extract_enhanced_utterance_features(
+              sig, path="conv"), 5, 1)}
+    print(f"zoo (b): enhanced 84-d vectors of {ENH_UTTERANCES} utterances of "
+          f"{ENH_SECONDS:g} s: K1 launches {launches}; K1 vs plain twin max "
+          f"abs err {err_k1:.3e} (bound {FEAT_TOL[1]} + {FEAT_TOL[0]}·|plain|); "
+          f"conv route: products within K1_TOL of the plain twin's, vectors "
+          f"max abs err {err_conv:.3e}, {int(beyond.sum())} of {beyond.numel()} "
+          f"entries beyond that bound (columns "
+          f"{sorted(set(torch.nonzero(beyond)[:, 1].tolist()))}); ms a batch "
+          f"(CUDA events): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+    # (c) the native decoder.
+    t0 = time.perf_counter()
+    lib = native.build()
+    built = time.perf_counter() - t0
+    if native.get_lib() is None or not lib.exists():
+        raise AssertionError("the native decoder did not build or load")
+    with tempfile.TemporaryDirectory(prefix="wavs_") as tmp:
+        paths = []
+        for sr in (44100, 48000):
+            m = int(DECODE_SECONDS * sr)
+            pcm = np.clip(rng.normal(size=(m, 2)) * 3000, -32768, 32767)
+            paths.append(os.path.join(tmp, f"{sr}.wav"))
+            wavfile.write(paths[-1], sr, pcm.astype(np.int16))
+        for path in paths:
+            got, decoder = audio_io.load_wav_with_decoder(path)
+            other = audio_io.load_wav_scipy(path)
+            if decoder != "native" or abs(len(got) - len(other)) > 1:
+                raise AssertionError(f"{path}: decoder {decoder}, {len(got)} vs "
+                                     f"{len(other)} samples")
+            k = min(len(got), len(other))
+            print(f"zoo (c): {os.path.basename(path)} stereo: the native "
+                  f"decoder, {len(got)} samples at 16 kHz (scipy {len(other)}), "
+                  f"max |native - scipy| {np.abs(got[:k] - other[:k]).max():.4f}")
+        walls = {}
+        for label, fn in (("native", audio_io.load_wav),
+                          ("scipy", audio_io.load_wav_scipy)):
+            with ThreadPoolExecutor(DECODE_THREADS) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(fn, paths * (DECODES // len(paths))))
+                walls[label] = time.perf_counter() - t0
+    print(f"zoo (c): the native decoder built from native/wavio.cpp into "
+          f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))} "
+          f"in {built:.2f} s; {DECODES} decodes of {DECODE_SECONDS:g} s stereo "
+          f"in {DECODE_THREADS} threads: native {walls['native']:.3f} s, scipy "
+          f"{walls['scipy']:.3f} s ({walls['scipy'] / walls['native']:.1f}x)")
+
+    # (d) the unified sequence encoder at 2,048 tokens, and the hierarchical
+    # model graphed.
+    enc = UnifiedSequenceEncoder()
+    init_flax_style_(enc, torch.Generator().manual_seed(SEED))
+    enc = enc.to(DEVICE).eval()
+    lengths = rng.integers(UNIFIED_T // 4, UNIFIED_T + 1, UNIFIED_B)
+    mask = (np.arange(UNIFIED_T)[None, :] < lengths[:, None]).astype(np.float32)
+    inputs = {
+        "audio_frames": torch.randn(UNIFIED_B, 188, 84, device=DEVICE),
+        "video_frames": torch.rand(UNIFIED_B, 4, 32, 32, 3, device=DEVICE),
+        "token_ids": torch.from_numpy(
+            rng.integers(1, 30522, (UNIFIED_B, UNIFIED_T))).to(DEVICE),
+        "text_mask": torch.from_numpy(mask).to(DEVICE)}
+    k3.flash_attention_fwd.launches = 0
+    with torch.no_grad():
+        got = enc(**inputs)
+        launches = k3.flash_attention_fwd.launches
+        for block in enc.text.blocks:
+            block.attn.use_flash = False
+        ref = enc(**inputs)
+    want = len(enc.text.blocks) if DEVICE == "cuda" else 0
+    if launches != want or set(got) != set(ref):
+        raise AssertionError(f"unified encoder: {launches} K3a launches, want "
+                             f"{want}")
+    err = max(check_close(f"unified {k} flash vs not", got[k], ref[k], *K3_TOL)
+              for k in got)
+    print(f"zoo (d): UnifiedSequenceEncoder (3 modalities, output 512) in eval "
+          f"at batch {UNIFIED_B}, text {UNIFIED_T} tokens ({int(mask.sum())} "
+          f"live): K3a launches {launches} (one a text layer); outputs vs "
+          f"use_flash=False max abs err {err:.3e} (rtol, atol {K3_TOL})")
+    hier = create_hierarchical_deer_model(seed=SEED, device=DEVICE)
+    hx = tuple(rows[k][:HIER_BATCH] for k in ("audio", "video", "text"))
+
+    def forward(a, v, t):
+        return {k: o for k, o in hier(a, v, t).items() if torch.is_tensor(o)}
+
+    with torch.inference_mode():
+        eager_out = {k: o.cpu().numpy() for k, o in forward(
+            *(torch.from_numpy(h).to(DEVICE) for h in hx)).items()}
+    if DEVICE == "cuda":
+        call = GraphedCall(forward, [(h.shape, torch.float32) for h in hx],
+                           torch.device(DEVICE))
+        graphed_out = call(*hx)
+    else:
+        graphed_out = eager_out
+    bits, total, err = graph_vs_eager(torch, "HierarchicalDEERFusionModel",
+                                      graphed_out, eager_out)
+    gate = graphed_out["modality_gate"]
+    if not np.allclose(gate.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError("HierarchicalDEERFusionModel: the gate is not a "
+                             "softmax")
+    print(f"zoo (d): HierarchicalDEERFusionModel forward at batch {HIER_BATCH} "
+          f"graphed vs eager: {bits} of {total} elements differ in any bit, "
+          f"max abs diff {err:.3e}")
+    print(f"zoo: phase 14 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3367,6 +3709,7 @@ def main() -> int:
                            emb.embedding_grad, k4.quantize_int8_stochastic,
                            k4.quantize_int8_stochastic_bits))
     phase_corpus(torch, k1, k3, emb)
+    phase_zoo(torch, k1, k3)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

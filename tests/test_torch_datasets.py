@@ -128,7 +128,7 @@ def extractors():
 
 
 def _assert_splits_match(got: dict, ref: dict):
-    assert set(got) - {"load_s", "text_encoder"} == set(ref)
+    assert set(got) - {"load_s", "text_encoder", "decoder"} == set(ref)
     assert got["text_backend"] == ref["text_backend"]
     assert (got.get("text_encoder") is not None) == (got["text_backend"] == "mlm")
     for split in ("train", "val", "test"):
@@ -153,6 +153,8 @@ def test_loader_matches_jax(name, roots, extractors, tmp_path):
     _assert_splits_match(got, ref)
     assert got["text_backend"] == "hashed"
     assert all(t >= 0 for t in got["load_s"].values())
+    # The wav decoder of the load (the feature-level MELD load decodes none).
+    assert got["decoder"] == (None if name == "meld" else "native")
     if name == "iemocap":  # the missing wav: 1,600 zeros through the front-end
         assert np.abs(got["test"].arrays["audio"]).sum(axis=1).min() > 0
     if name == "meld":  # no clips: no audio reaches K1
@@ -160,6 +162,7 @@ def test_loader_matches_jax(name, roots, extractors, tmp_path):
     # A second load is a cache hit with the same arrays.
     again = tload(roots[name], extractor=extractors[1], cache_dir=str(tmp_path / "t"))
     assert "cache_s" in again["load_s"]
+    assert again["decoder"] is None  # a cache hit decodes nothing
     _assert_splits_match(again, ref)
 
 

@@ -439,3 +439,50 @@ def test_k4_matches_plain(device, shape):
         q, s = k4.quantize_int8_stochastic(view, seed=5)
         rq, rs = k4.quantize_int8_stochastic_plain(view, seed=5)
         assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+def test_enhanced_features_on_card_match_plain(device):
+    """The enhanced 84-d vectors of voiced utterances through K1 (one
+    launch for the batch) against the plain twin's on the card, within
+    rtol 1e-4, atol 1e-5; the conv route's products (cuDNN's convolution)
+    against the plain twin's within the front-end tolerances."""
+    rng = np.random.default_rng(14)
+    n = 32000
+    t = np.arange(n) / 16000.0
+    sig = np.stack([0.3 * np.sin(2 * np.pi * (120 + 40 * i) * t)
+                    + 0.02 * rng.normal(size=n) for i in range(4)])
+    x = torch.from_numpy(sig.astype(np.float32)).to(device)
+    before = mfcc_signal.launches
+    got = taf.extract_enhanced_utterance_features(x)
+    assert mfcc_signal.launches - before == 1
+    ref = taf.extract_enhanced_utterance_features(x, plain=True)
+    assert got.shape == (4, 84) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    before = mfcc_signal.launches
+    conv = taf.mfcc_from_signal(x, path="conv")
+    assert mfcc_signal.launches == before
+    for g, r, (rtol, atol) in zip(conv, taf.mfcc_from_signal(x, plain=True), TOL):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
+def test_unified_encoder_text_takes_k3a_at_2048(device):
+    """UnifiedSequenceEncoder's text encoder at 2,048 tokens in eval
+    launches K3a once a layer and matches use_flash=False."""
+    from tpu_deer_torch.models.encoders import UnifiedSequenceEncoder
+    from tpu_deer_torch.models.layers import init_flax_style_
+
+    enc = UnifiedSequenceEncoder(modalities=("text",))
+    init_flax_style_(enc, torch.Generator().manual_seed(0))
+    enc = enc.to(device).eval()
+    ids = torch.randint(1, 30522, (2, 2048), device=device)
+    mask = torch.ones(2, 2048, device=device)
+    mask[1, 700:] = 0
+    before = k3.flash_attention_fwd.launches
+    with torch.no_grad():
+        got = enc(token_ids=ids, text_mask=mask)
+        assert k3.flash_attention_fwd.launches - before == len(enc.text.blocks)
+        for block in enc.text.blocks:
+            block.attn.use_flash = False
+        ref = enc(token_ids=ids, text_mask=mask)
+    for key in ref:
+        torch.testing.assert_close(got[key], ref[key], rtol=1e-4, atol=5e-5)

@@ -120,10 +120,17 @@ def test_nig_functions_match_jax(rng):
                                 dict(stacked_compute=True),
                                 dict(fusion_type="attention")])
 def test_unported_config_raises(kw):
-    """compute_dtype="bfloat16" is ported: tests/test_torch_bf16.py holds
-    it against the reference."""
-    with pytest.raises(NotImplementedError):
-        CompleteDEERModel(DEERModelConfig(**kw))
+    """These configs were refused before the fusion zoo and the stacked
+    layout were ported; now each builds, with the reference's parameter
+    count at the default widths (tests/test_torch_model_zoo.py holds their
+    outputs against the reference). compute_dtype="bfloat16" is ported:
+    tests/test_torch_bf16.py holds it against the reference."""
+    counts = {"moe": 3_657_720, "hierarchical": 3_918_324,
+              "attention": 2_736_117}
+    with torch.device("meta"):
+        model = CompleteDEERModel(DEERModelConfig(**kw))
+    assert count_parameters(model) == counts[kw.get("fusion_type",
+                                                    "hierarchical")]
 
 
 def test_resolve_use_flash_dispatch():

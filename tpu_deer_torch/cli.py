@@ -165,6 +165,7 @@ class MultimodalDEERPipeline:
             compute_dtype=self.config["hardware"].get("compute_dtype", "float32"),
             fusion_type=str(m.get("fusion_type", "hierarchical")),
             moe_experts=int(m.get("moe_experts", 4)),
+            stacked_compute=bool(m.get("stacked_compute", False)),
         )
         if self.ensemble_members > 1:
             from tpu_deer_torch.train.ensemble import create_deer_ensemble
@@ -656,22 +657,29 @@ def export_model(args, pipeline: "MultimodalDEERPipeline",
     """--mode export: the configured model, with `--model_path`'s weights
     and serving channel, exported to <output_dir>/exported_model."""
     from tpu_deer_torch.export import export_inference
+    from tpu_deer_torch.models.deer_model import LAYOUT_FIELDS
 
-    pipeline.create_model()
-    ensemble = pipeline.ensemble_members > 1
-    params = pipeline.params
-    serving_channel = "eabs"
+    ckpt = step = None
     if args.model_path:
         from tpu_deer_torch.train.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(args.model_path)
         step = ("best" if os.path.isdir(os.path.join(args.model_path, "best"))
                 else None)
+        # The model the checkpoint was trained as (fusion type, layout).
+        meta = ckpt.metadata(step)
+        layout = meta.get("model", {})
+        pipeline.config["model"].update(
+            {f: layout[f] for f in LAYOUT_FIELDS if f in layout})
+    pipeline.create_model()
+    ensemble = pipeline.ensemble_members > 1
+    params = pipeline.params
+    serving_channel = "eabs"
+    if ckpt is not None:
         params = ckpt.restore_params(step)
         if not ensemble:
             pipeline.model.load_state_dict(params)
-        serving_channel = ckpt.metadata(step)["metrics"].get(
-            "serving_channel", "eabs")
+        serving_channel = meta["metrics"].get("serving_channel", "eabs")
     ood_det = None
     if args.ood_detector:
         from tpu_deer_torch.eval.ood import MahalanobisOOD

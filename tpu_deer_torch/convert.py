@@ -32,7 +32,14 @@ segment:
                                         unchanged
 
 Every other segment (input_proj, q_proj, av_fusion_in, head_valence, ...)
-is the same on both sides.
+is the same on both sides; BilinearFusion's `bilinear_kernel` [in_a, in_b,
+out] keeps flax's layout.
+
+Member-stacked subtrees (flax's `nn.vmap` with a leading member axis on
+every leaf: the stacked layout's `stacked_encoders/trunk` and
+`stacked_heads/evidence_network`, MoEFusion's `experts`) convert member by
+member, each member as its unstacked counterpart would, and stack again:
+a Dense kernel [E, in, out] becomes a weight [E, out, in].
 """
 
 from __future__ import annotations
@@ -93,8 +100,24 @@ def _lstm_cell(cell: Mapping, prefix: list[str], layer: str, reverse: bool,
     out[f"{base}.bias_hh{sfx}"] = np.concatenate(gates("h", "bias"))
 
 
-def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """Nested flax params (numpy leaves) → the port's state_dict."""
+# (parent, segment) of a member-stacked subtree; None matches any parent.
+_MEMBER_STACKED = (("stacked_encoders", "trunk"),
+                   ("stacked_heads", "evidence_network"), (None, "experts"))
+
+
+def _is_member_stacked(parent: str, seg: str) -> bool:
+    return any(seg == s and p in (None, parent) for p, s in _MEMBER_STACKED)
+
+
+def member_axes(key: str) -> int:
+    """1 if state_dict entry `key` lies in a member-stacked subtree (its
+    tensors carry a leading member axis), else 0."""
+    toks = key.split(".")
+    return int(any(_is_member_stacked(toks[i - 1] if i else "", tok)
+                   for i, tok in enumerate(toks[:-1])))
+
+
+def _flax_to_arrays(params: Mapping, parent: str = "") -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
 
     def walk(node: Mapping, parent: str, prefix: list[str]) -> None:
@@ -104,12 +127,24 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
                 out[".".join(prefix + [name])] = arr
             elif (m := re.fullmatch(r"(fwd|bwd)_(\d+)", key)) and set(value) == _LSTM_CELL:
                 _lstm_cell(value, prefix, m.group(2), m.group(1) == "bwd", out)
+            elif _is_member_stacked(parent, key):
+                here = ".".join(prefix + _torch_segment(key, parent, node))
+                members = [_flax_to_arrays(_unstack(value, k), key)
+                           for k in range(_members(value) or 1)]
+                for name, arr in members[0].items():
+                    out[f"{here}.{name}"] = (arr if arr.size == 0 else
+                                             np.stack([m[name] for m in members]))
             else:
                 walk(value, key, prefix + _torch_segment(key, parent, node))
 
-    walk(params, "", [])
+    walk(params, parent, [])
+    return out
+
+
+def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """Nested flax params (numpy leaves) → the port's state_dict."""
     return {k: torch.from_numpy(np.ascontiguousarray(v).copy())
-            for k, v in out.items()}
+            for k, v in _flax_to_arrays(params).items()}
 
 
 def _flax_path(key: str) -> tuple[str, ...]:
@@ -124,10 +159,13 @@ def _flax_path(key: str) -> tuple[str, ...]:
                         "layers": f"Dense_{nxt}", "convs": f"conv_{nxt}"}[tok])
             i += 2
             continue
+        in_block = i >= 2 and toks[i - 2] in ("blocks", "convs")
         if tok == "norm" and i >= 2 and toks[i - 2] == "blocks":
             out.append("LayerNorm_0")  # ResidualBlock
-        else:
+        elif in_block:  # a transformer block's, ResidualBlock's or ConvBlock's
             out.append(_TO_FLAX.get(tok, tok))
+        else:
+            out.append(tok)
         i += 1
     return tuple(out) + (toks[-1],)
 
@@ -135,13 +173,14 @@ def _flax_path(key: str) -> tuple[str, ...]:
 def flax_leaf(key: str, ndim: int) -> str:
     """The flax leaf name of state_dict entry `key` of rank `ndim` (not an
     LSTM tensor): "kernel" for a Linear or conv weight, "embedding",
-    "scale" for a norm's weight; other names are unchanged."""
+    "scale" for a norm's weight; other names are unchanged. The member axis
+    of a member-stacked subtree does not count in `ndim`'s reading."""
     path = _flax_path(key)
     if path[-1] != "weight":
         return path[-1]
     if len(path) >= 2 and path[-2] == "embed":
         return "embedding"
-    return "scale" if ndim == 1 else "kernel"
+    return "scale" if ndim - member_axes(key) == 1 else "kernel"
 
 
 def flax_quantized_to_state_dict(q_tree: Mapping, scale_tree: Mapping
@@ -173,7 +212,15 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(seg, {})
         node[path[-1]] = np.ascontiguousarray(arr)
 
+    stacked: dict[str, dict] = {}  # member-stacked subtree → its entries
     for key, tensor in state_dict.items():
+        toks = key.split(".")
+        cut = next((i for i, tok in enumerate(toks[:-1])
+                    if _is_member_stacked(toks[i - 1] if i else "", tok)), None)
+        if cut is not None:
+            head, rest = ".".join(toks[:cut + 1]), ".".join(toks[cut + 1:])
+            stacked.setdefault(head, {})[rest] = tensor
+            continue
         arr = tensor.detach().cpu().numpy()
         if m := _LSTM_KEY.fullmatch(key):
             prefix, kind, layer, reverse = m.groups()
@@ -196,31 +243,37 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         if leaf == "kernel":
             arr = arr.transpose(np.argsort(_KERNEL_AXES[arr.ndim]))
         put(path[:-1] + (leaf,), arr)
+    for head, entries in stacked.items():
+        node = tree
+        for seg in _flax_path(head + ".x")[:-1]:
+            node = node.setdefault(seg, {})
+        node.update(state_dict_to_stacked_flax(entries))
     return tree
 
 
 # -- member-stacked trees (deep ensembles) ------------------------------------
 
 def _unstack(tree: Mapping, k: int) -> dict:
-    """Member `k` of a tree whose leaves carry a leading member axis; a leaf
-    of shape [0] (the quantizer's empty scale, which is not stacked) is the
-    same for every member."""
+    """Member `k` of a tree whose leaves carry a leading member axis; an
+    empty leaf (the quantizer's scale of a leaf it passes through, which is
+    not stacked) is the same for every member."""
     return {key: _unstack(v, k) if isinstance(v, Mapping)
-            else (np.asarray(v) if np.shape(v) == (0,) else np.asarray(v)[k])
+            else (np.asarray(v) if np.size(v) == 0 else np.asarray(v)[k])
             for key, v in tree.items()}
 
 
 def _members(tree: Mapping) -> int:
+    """The member count of a stacked tree (None where every leaf is empty)."""
     for v in tree.values():
         n = _members(v) if isinstance(v, Mapping) else (
-            None if np.shape(v) == (0,) else np.shape(v)[0])
+            None if np.size(v) == 0 else np.shape(v)[0])
         if n is not None:
             return n
     return None
 
 
 def _stack_state(dicts: list) -> dict[str, torch.Tensor]:
-    return {k: (dicts[0][k] if dicts[0][k].shape == (0,)
+    return {k: (dicts[0][k] if dicts[0][k].numel() == 0
                 else torch.stack([d[k] for d in dicts]))
             for k in dicts[0]}
 
@@ -234,14 +287,17 @@ def stacked_flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def state_dict_to_stacked_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of `stacked_flax_to_state_dict`."""
-    n = next(iter(state_dict.values())).shape[0]
-    trees = [state_dict_to_flax({k: v[i] for k, v in state_dict.items()})
+    """Inverse of `stacked_flax_to_state_dict` (empty entries, which carry
+    no member axis, stay as they are)."""
+    n = next((v.shape[0] for v in state_dict.values() if v.numel()), 1)
+    trees = [state_dict_to_flax({k: v if v.numel() == 0 else v[i]
+                                 for k, v in state_dict.items()})
              for i in range(n)]
 
     def stack(nodes):
         first = nodes[0]
         return {key: stack([n[key] for n in nodes]) if isinstance(first[key], Mapping)
+                else first[key] if np.size(first[key]) == 0
                 else np.stack([n[key] for n in nodes]) for key in first}
 
     return stack(trees)

@@ -22,7 +22,8 @@ extractor MLM-pretrains the text featurizer on the corpus's own train-split
 transcripts (`train/text_pretrain.py`, cached by corpus content); a caller's
 extractor is used as it is. The feature cache is keyed on the text backend
 that was actually resolved. The result also carries "text_backend",
-"load_s", the wall seconds of the load's parts (decode, audio, mlm, text,
+"decoder", the wav decoder of the load ("native" or "scipy",
+`data/audio_io.py`), "load_s", the wall seconds of the load's parts (decode, audio, mlm, text,
 video, total), and "text_encoder", the MLM featurizer the load used (its
 `history` set where this load trained it) or None.
 """
@@ -156,14 +157,17 @@ def bootstrap_text(extractor, train_texts, cache_dir, device, what: str) -> None
                        "transcripts — falling back to hashed text features")
 
 
-def decode_all(paths, fill: int = 1600) -> list[np.ndarray]:
-    """Each wav decoded (a pool of 8 threads); None gives `fill` zeros."""
-    from tpu_deer_torch.data.audio_io import load_wav
+def decode_all(paths, fill: int = 1600) -> tuple[list[np.ndarray], str]:
+    """Each wav decoded (a pool of 8 threads; the native decoder releases
+    the GIL); None gives `fill` zeros. Returns the signals and the decoder
+    of the load ("native" where every file took it, else "scipy")."""
+    from tpu_deer_torch.data.audio_io import decoder_of, load_wav_with_decoder
 
     with ThreadPoolExecutor(max_workers=8) as pool:
-        return list(pool.map(
-            lambda p: load_wav(str(p)) if p else np.zeros(fill, np.float32),
-            paths))
+        decoded = list(pool.map(
+            lambda p: load_wav_with_decoder(str(p)) if p
+            else (np.zeros(fill, np.float32), "native"), paths))
+    return [d[0] for d in decoded], decoder_of(d[1] for d in decoded)
 
 
 def load_iemocap(root_path: str, quick: bool = False,
@@ -171,7 +175,9 @@ def load_iemocap(root_path: str, quick: bool = False,
                  pretrain_text: Optional[bool] = None,
                  device: DeviceLike = None) -> dict:
     """Parse and featurize IEMOCAP → {"train"/"val"/"test": ArrayDataset,
-    "text_backend": str, "load_s": {part: seconds}, "text_encoder"}. An
+    "text_backend": str, "decoder": "native" | "scipy" (the wav decoder;
+    None on a cache hit, which decodes nothing), "load_s": {part: seconds},
+    "text_encoder"}. An
     extractor the loader builds, and the MLM featurizer, run on `device`
     (None = the CUDA card)."""
     from tpu_deer_torch.data.features import MultimodalFeatureExtractor
@@ -216,7 +222,7 @@ def load_iemocap(root_path: str, quick: bool = False,
     times["mlm_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    signals = decode_all([s["wav"] for s in samples])
+    signals, decoder = decode_all([s["wav"] for s in samples])
     times["decode_s"] = time.perf_counter() - t
     texts = [s["text"] for s in samples]
     t = time.perf_counter()
@@ -248,14 +254,15 @@ def load_iemocap(root_path: str, quick: bool = False,
     }
     save_cached(cdir, key, arrays)
     times["total_s"] = time.perf_counter() - t0
-    return _split_arrays(arrays, times, text_encoder=extractor.text.encoder)
+    return _split_arrays(arrays, times, text_encoder=extractor.text.encoder,
+                         decoder=decoder)
 
 
 _META_KEYS = ("split_code", "text_backend")
 
 
 def _split_arrays(arrays: dict, times: dict, name: str = "iemocap",
-                  text_encoder=None) -> dict:
+                  text_encoder=None, decoder: Optional[str] = None) -> dict:
     code = arrays["split_code"]
     out: dict = {}
     for split, c in (("train", 0), ("val", 1), ("test", 2)):
@@ -264,6 +271,7 @@ def _split_arrays(arrays: dict, times: dict, name: str = "iemocap",
             {k: v[idx] for k, v in arrays.items() if k not in _META_KEYS},
             name=name)
     out["text_backend"] = str(arrays.get("text_backend", "hashed"))
+    out["decoder"] = decoder
     out["load_s"] = times
     out["text_encoder"] = text_encoder
     return out

@@ -160,6 +160,7 @@ def _unpack(packed: dict, times: dict, text_encoder=None) -> dict:
                 arrays["token_mask"] = packed[f"{split}_token_mask"]
             out[split] = ArrayDataset(arrays, name="meld")
     out["text_backend"] = str(packed.get("text_backend", "hashed"))
+    out["decoder"] = None  # the feature-level MELD load decodes no audio
     out["load_s"] = times
     out["text_encoder"] = text_encoder
     return out

@@ -11,8 +11,9 @@ speaker-independent by actor: 1-18 train, 19-21 val, 22-24 test.
 The audio goes through `extractor.audio.extract_batch` (K1 on the card);
 video comes from the full-AV mp4 sibling where there is one
 (`VideoFeatureExtractor.extract`). No MLM bootstrap: the corpus has two
-fixed statements. The result also carries "text_backend", "load_s"
-and "text_encoder".
+fixed statements. The result also carries "text_backend", "decoder"
+(the wav decoder, "native" or "scipy"; None on a cache hit), "load_s" and
+"text_encoder".
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ def load_ravdess(root_path: str, quick: bool = False,
     extractor = extractor or MultimodalFeatureExtractor(device=device)
     times = {}
     t = time.perf_counter()
-    signals = decode_all([r["wav"] for r in records])
+    signals, decoder = decode_all([r["wav"] for r in records])
     times["decode_s"] = time.perf_counter() - t
     t = time.perf_counter()
     audio_feats = extractor.audio.extract_batch(signals)
@@ -141,4 +142,5 @@ def load_ravdess(root_path: str, quick: bool = False,
     }
     save_cached(cdir, key, arrays)
     times["total_s"] = time.perf_counter() - t0
-    return _split_arrays(arrays, times, "ravdess", extractor.text.encoder)
+    return _split_arrays(arrays, times, "ravdess", extractor.text.encoder,
+                         decoder)

@@ -25,8 +25,8 @@ def load_configured_datasets(config: dict, quick: bool = False,
 
     Returns {"train": {name: ArrayDataset}, "val": {...}, "test": {...},
     "meta": {"text_backend": {name: backend}, "load_s": {name: {part:
-    seconds}}, "text_encoder": {name: the MLM featurizer its loader
-    used}}} or None when nothing is available. `datasets.pretrain_text`
+    seconds}}, "decoder": {name: "native" | "scipy" | None (nothing decoded)}, "text_encoder":
+    {name: the MLM featurizer its loader used}}} or None when nothing is available. `datasets.pretrain_text`
     absent or None is AUTO (IEMOCAP and MELD MLM-pretrain their text
     featurizer on their own train transcripts); false forces the hashed
     features, true forces pretraining. A loader that fails is skipped with a
@@ -48,6 +48,7 @@ def load_configured_datasets(config: dict, quick: bool = False,
     out: dict = {"train": {}, "val": {}, "test": {}}
     text_backends: dict[str, str] = {}
     load_s: dict[str, dict] = {}
+    decoders: dict[str, Optional[str]] = {}
     encoders: dict = {}
     for name in names:
         path = paths.get(name)
@@ -71,11 +72,12 @@ def load_configured_datasets(config: dict, quick: bool = False,
                 out[split][name.lower()] = splits[split]
         text_backends[name.lower()] = str(splits.get("text_backend", "hashed"))
         load_s[name.lower()] = splits.get("load_s", {})
+        decoders[name.lower()] = splits.get("decoder")
         if splits.get("text_encoder") is not None:
             encoders[name.lower()] = splits["text_encoder"]
     if not text_backends:
         return None
     out["meta"] = {"text_backend": text_backends, "load_s": load_s,
-                   "text_encoder": encoders}
+                   "decoder": decoders, "text_encoder": encoders}
     logger.info(f"text feature backends: {text_backends}")
     return out

@@ -2,7 +2,8 @@
 
 Port of `tpu_deer/models/attention.py` (MultiHeadAttention with its plain
 scaled-dot-product branch and its flash branch, kernels K3a-c;
-UncertaintyEstimator; UncertaintyAwareAttention). The flagship model
+UncertaintyEstimator; UncertaintyAwareAttention; CrossModalAttention, the
+text-queried attention of `HierarchicalDEERFusionModel`). The flagship model
 attends over sequences of length 1, so its attention is a handful of dense
 matmuls; the raw model's text encoder takes the flash branch on long
 transcripts.
@@ -172,3 +173,26 @@ class UncertaintyAwareAttention(nn.Module):
             "attention_weights": weights,
             "modality_uncertainties": torch.cat([u_a, u_v, u_t], dim=1),
         }
+
+
+class CrossModalAttention(nn.Module):
+    """Text-as-query attention over audio and video plus an uncertainty
+    gate: a_att = attn(t, a, a), v_att = attn(t, v, v) (one attention for
+    both), gate = softmax(MLP(cat[a_att, v_att, text])) [B, 2] over the two
+    non-text modalities. Returns (a_att, v_att, gate), all in `dtype`."""
+
+    def __init__(self, feature_dim: int, num_heads: int = 8,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attn = MultiHeadAttention(feature_dim, num_heads, dropout,
+                                       dtype=dtype)
+        self.uncertainty_gate = MLP(3 * feature_dim, [feature_dim, 2],
+                                    dropout=dropout,
+                                    final_activation="softmax", dtype=dtype)
+
+    def forward(self, audio, video, text):
+        a1, v1, t1 = (x[:, None, :] for x in (audio, video, text))
+        a_att = self.attn(t1, a1, a1)[:, 0]
+        v_att = self.attn(t1, v1, v1)[:, 0]
+        gate = self.uncertainty_gate(torch.cat([a_att, v_att, text], dim=-1))
+        return a_att, v_att, gate

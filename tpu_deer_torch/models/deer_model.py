@@ -1,9 +1,18 @@
 """The flagship CompleteDEERModel: trimodal evidential VAD regression.
 
 Port of `tpu_deer/models/deer_model.py`: three feature-level encoders →
-uncertainty-aware cross-modal attention → gated hierarchical fusion → three
-DEER evidence heads → uncertainty calibration. 3,918,324 parameters at the
-default config, as in the reference.
+uncertainty-aware cross-modal attention → fusion → three DEER evidence
+heads → uncertainty calibration. 3,918,324 parameters at the default
+config, as in the reference.
+
+`fusion_type` "hierarchical" (the default) is the gated hierarchical
+fusion; any other value goes through the fusion zoo's factory
+(`models/fusion.py:create_fusion_module`: "attention", "bilinear",
+"adaptive", "moe" with `moe_experts` experts, and the concat fallback).
+`stacked_compute=True` runs the three encoders and the three evidence
+networks as batched chains over [3, ...] parameters (`models/stacked.py`),
+with the same float32 NIG math; `stack_params` converts a default-layout
+state_dict to it.
 
 `compute_dtype` (e.g. "bfloat16") is the dtype of the dense path, as the
 reference's: the inputs are cast to it on entry and every encoder,
@@ -25,12 +34,17 @@ from torch.func import functional_call, vmap
 from tpu_deer_torch.device import DeviceLike, resolve_device
 from tpu_deer_torch.models.attention import UncertaintyAwareAttention
 from tpu_deer_torch.models.encoders import ModalityEncoder
-from tpu_deer_torch.models.fusion import HierarchicalFusion
+from tpu_deer_torch.models.fusion import HierarchicalFusion, create_fusion_module
 from tpu_deer_torch.models.heads import (
     DEERPredictionHead,
     UncertaintyCalibrationLayer,
+    evidence_outputs,
 )
 from tpu_deer_torch.models.layers import init_flax_style_, torch_dtype
+from tpu_deer_torch.models.stacked import (
+    StackedEvidenceHeads,
+    StackedModalityEncoders,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +77,8 @@ class DEERModelConfig:
         return torch_dtype(self.compute_dtype)
 
 
-def _check_supported(cfg: DEERModelConfig) -> None:
-    if cfg.fusion_type != "hierarchical":
-        raise NotImplementedError(
-            f"fusion_type={cfg.fusion_type!r}: only 'hierarchical' is ported")
-    if cfg.stacked_compute:
-        raise NotImplementedError("stacked_compute=True is not ported yet")
+_HEAD_KEYS = ("mu", "nu", "alpha", "beta", "aleatoric_uncertainty",
+              "epistemic_uncertainty", "uncertainty")
 
 
 class CompleteDEERModel(nn.Module):
@@ -77,44 +87,75 @@ class CompleteDEERModel(nn.Module):
 
     def __init__(self, config: DEERModelConfig = DEERModelConfig()):
         super().__init__()
-        _check_supported(config)
         self.config = cfg = config
         self.dtype = dt = cfg.dtype
-        enc = lambda dim: ModalityEncoder(dim, cfg.encoder_dim,
-                                          cfg.encoder_layers, cfg.dropout, dt)
-        self.audio_encoder = enc(cfg.audio_dim)
-        self.video_encoder = enc(cfg.video_dim)
-        self.text_encoder = enc(cfg.text_dim)
+        in_dims = (cfg.audio_dim, cfg.video_dim, cfg.text_dim)
+        if cfg.stacked_compute:
+            self.stacked_encoders = StackedModalityEncoders(
+                in_dims, cfg.encoder_dim, cfg.encoder_layers, cfg.dropout, dt)
+        else:
+            enc = lambda dim: ModalityEncoder(dim, cfg.encoder_dim,
+                                              cfg.encoder_layers, cfg.dropout, dt)
+            self.audio_encoder = enc(cfg.audio_dim)
+            self.video_encoder = enc(cfg.video_dim)
+            self.text_encoder = enc(cfg.text_dim)
         self.uncertainty_attention = UncertaintyAwareAttention(
             cfg.encoder_dim, cfg.attention_heads, dropout=0.1, dtype=dt)
-        self.fusion = HierarchicalFusion(cfg.encoder_dim, cfg.fusion_dim,
-                                         cfg.dropout, dt)
-        self.heads = nn.ModuleDict({
-            name: DEERPredictionHead(cfg.fusion_dim, cfg.encoder_dim,
-                                     cfg.dropout, output_dim=1, dtype=dt)
-            for name in cfg.dim_names
-        })
+        if cfg.fusion_type == "hierarchical":
+            self.fusion = HierarchicalFusion(cfg.encoder_dim, cfg.fusion_dim,
+                                             cfg.dropout, dt)
+        else:
+            kwargs = {"dtype": dt}
+            if cfg.fusion_type == "moe":
+                kwargs["num_experts"] = cfg.moe_experts
+            self.fusion = create_fusion_module(
+                cfg.fusion_type, (cfg.encoder_dim,) * 3, cfg.fusion_dim, **kwargs)
+        if cfg.stacked_compute:
+            self.stacked_heads = StackedEvidenceHeads(
+                cfg.fusion_dim, cfg.encoder_dim, cfg.dropout, output_dim=1,
+                dtype=dt, n_heads=len(cfg.dim_names))
+        else:
+            self.heads = nn.ModuleDict({
+                name: DEERPredictionHead(cfg.fusion_dim, cfg.encoder_dim,
+                                         cfg.dropout, output_dim=1, dtype=dt)
+                for name in cfg.dim_names
+            })
         self.calibration = UncertaintyCalibrationLayer(cfg.emotion_dims)
+
+    def _heads(self, fused: torch.Tensor):
+        """(name, head outputs) for every dimension; the stacked heads' raw
+        evidence takes DEERPredictionHead's float32 NIG math."""
+        if not self.config.stacked_compute:
+            return [(name, self.heads[name](fused))
+                    for name in self.config.dim_names]
+        evidence = self.stacked_heads(fused)  # [heads, B, 4]
+        return [(name, evidence_outputs(evidence[i]))
+                for i, name in enumerate(self.config.dim_names)]
 
     def forward(self, audio, video, text) -> dict:
         dt = self.dtype
-        a = self.audio_encoder(audio.to(dt))
-        v = self.video_encoder(video.to(dt))
-        t = self.text_encoder(text.to(dt))
+        audio, video, text = audio.to(dt), video.to(dt), text.to(dt)
+        if self.config.stacked_compute:
+            a, v, t = self.stacked_encoders(audio, video, text)
+        else:
+            a = self.audio_encoder(audio)
+            v = self.video_encoder(video)
+            t = self.text_encoder(text)
         attended = self.uncertainty_attention(a, v, t)
-        fused = self.fusion(attended["audio"], attended["video"],
-                            attended["text"])
+        modalities = (attended["audio"], attended["video"], attended["text"])
+        if self.config.fusion_type == "hierarchical":
+            fused = self.fusion(*modalities)
+        else:
+            fused = self.fusion(list(modalities))
         out: dict = {
             "attention_weights": attended["attention_weights"],
             "modality_uncertainties": attended["modality_uncertainties"],
             "fused_features": fused,
         }
         mus, uncs = [], []
-        for name in self.config.dim_names:
-            head = self.heads[name](fused)
+        for name, head in self._heads(fused):
             out[f"{name}_params"] = head["params"]
-            for k in ("mu", "nu", "alpha", "beta", "aleatoric_uncertainty",
-                      "epistemic_uncertainty", "uncertainty"):
+            for k in _HEAD_KEYS:
                 out[f"{name}_{k}"] = head[k]
             mus.append(head["mu"])
             uncs.append(head["uncertainty"])
@@ -122,6 +163,25 @@ class CompleteDEERModel(nn.Module):
         out["uncertainty_all"] = torch.cat(uncs, dim=-1)
         out["calibrated_uncertainty"] = self.calibration(out["uncertainty_all"])
         return out
+
+
+# The fields of a model's layout that its checkpoints record, so that a
+# checkpoint is served with the model it was trained as.
+LAYOUT_FIELDS = ("audio_dim", "video_dim", "text_dim", "encoder_dim",
+                 "fusion_dim", "emotion_dims", "attention_heads",
+                 "encoder_layers", "fusion_type", "moe_experts",
+                 "stacked_compute")
+
+
+def layout_meta(config: DEERModelConfig) -> dict:
+    """The layout fields of `config`, for a checkpoint's metadata."""
+    return {f: getattr(config, f) for f in LAYOUT_FIELDS}
+
+
+def config_from_meta(meta: dict) -> DEERModelConfig:
+    """The model config a checkpoint's metadata records (the defaults for
+    a field it does not record)."""
+    return DEERModelConfig(**{f: meta[f] for f in LAYOUT_FIELDS if f in meta})
 
 
 def get_predictions_and_uncertainties(outputs: dict

@@ -16,8 +16,12 @@ Port of `tpu_deer/models/encoders.py`:
 Numerics follow flax: LayerNorm and GroupNorm eps 1e-6, GroupNorm groups
 min(8, channels), "SAME" padding (asymmetric, (0, 1), for the stride-2 conv
 on an even size), the LSTM's backward direction over the full padded
-length. `UnifiedSequenceEncoder` and the text encoder's MLM logits are not
-ported yet.
+length.
+
+`UnifiedSequenceEncoder` puts the three sequence encoders behind one call
+(a modality that is not requested or not given is not computed), and
+`create_encoders_from_config` / `get_encoder_output_dims` build the
+flagship's three feature encoders from a model config.
 """
 
 from __future__ import annotations
@@ -244,3 +248,56 @@ class TextSequenceEncoder(nn.Module):
         if return_sequence:
             return out, attn, x
         return out, attn
+
+
+def create_encoders_from_config(config) -> dict[str, ModalityEncoder]:
+    """The three feature-level encoders of a model config (`DEERModelConfig`
+    or anything with its fields), keyed by modality."""
+    return {
+        name: ModalityEncoder(getattr(config, f"{name}_dim"),
+                              config.encoder_dim, config.encoder_layers,
+                              config.dropout, config.dtype)
+        for name in ("audio", "video", "text")
+    }
+
+
+def get_encoder_output_dims(config) -> dict[str, int]:
+    """The embedding width of each encoder `create_encoders_from_config`
+    builds."""
+    return {name: config.encoder_dim for name in ("audio", "video", "text")}
+
+
+class UnifiedSequenceEncoder(nn.Module):
+    """The three raw-sequence encoders behind one call, each producing an
+    `output_dim` embedding (with their reference defaults: a 2-layer BiLSTM
+    of 256, conv features (32, 64, 128, 256), a 4-layer transformer of width
+    256 whose attention takes kernel K3 from a key length of 2048 at
+    inference). Only the requested `modalities` are built, and a modality
+    whose input is None is skipped. Returns {"audio", "audio_attention",
+    "video", ..., "text_attention"} for the modalities computed. float32,
+    as `RawSequenceDEERModel`; `audio_dim` and `video_channels` give the
+    input widths flax infers at its first call."""
+
+    def __init__(self, output_dim: int = 512,
+                 modalities: Sequence[str] = ("audio", "video", "text"),
+                 vocab_size: int = 30522, audio_dim: int = 84,
+                 video_channels: int = 3):
+        super().__init__()
+        self.modalities = tuple(modalities)
+        if "audio" in self.modalities:
+            self.audio = AudioSequenceEncoder(audio_dim, output_dim)
+        if "video" in self.modalities:
+            self.video = VideoSequenceEncoder(video_channels, output_dim)
+        if "text" in self.modalities:
+            self.text = TextSequenceEncoder(vocab_size, output_dim)
+
+    def forward(self, audio_frames=None, video_frames=None, token_ids=None,
+                text_mask=None) -> dict:
+        out: dict = {}
+        if "audio" in self.modalities and audio_frames is not None:
+            out["audio"], out["audio_attention"] = self.audio(audio_frames)
+        if "video" in self.modalities and video_frames is not None:
+            out["video"], out["video_attention"] = self.video(video_frames)
+        if "text" in self.modalities and token_ids is not None:
+            out["text"], out["text_attention"] = self.text(token_ids, text_mask)
+        return out

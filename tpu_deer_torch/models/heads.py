@@ -12,6 +12,25 @@ from tpu_deer_torch.core.nig import nig_params_from_evidence, nig_uncertainties
 from tpu_deer_torch.models.layers import MLP, lecun_normal_
 
 
+def evidence_outputs(evidence: torch.Tensor, output_dim: int = 1) -> dict:
+    """Raw evidence [..., 4 · output_dim] (any dtype) → NIG params and
+    uncertainties in float32: the evidence is cast up first."""
+    evidence = evidence.to(torch.float32)
+    evidence = evidence.reshape(*evidence.shape[:-1], output_dim, 4)
+    params = nig_params_from_evidence(evidence)
+    unc = nig_uncertainties(params)
+    return {
+        "params": params,
+        "mu": params.mu,
+        "nu": params.nu,
+        "alpha": params.alpha,
+        "beta": params.beta,
+        "aleatoric_uncertainty": unc["aleatoric"],
+        "epistemic_uncertainty": unc["epistemic"],
+        "uncertainty": unc["total"],
+    }
+
+
 class DEERPredictionHead(nn.Module):
     """Evidence network for one emotion dimension (computed in `dtype`) →
     NIG params + uncertainties (float32: the evidence is cast up first)."""
@@ -27,20 +46,7 @@ class DEERPredictionHead(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> dict:
-        evidence = self.evidence_network(x).to(torch.float32)
-        evidence = evidence.reshape(*evidence.shape[:-1], self.output_dim, 4)
-        params = nig_params_from_evidence(evidence)
-        unc = nig_uncertainties(params)
-        return {
-            "params": params,
-            "mu": params.mu,
-            "nu": params.nu,
-            "alpha": params.alpha,
-            "beta": params.beta,
-            "aleatoric_uncertainty": unc["aleatoric"],
-            "epistemic_uncertainty": unc["epistemic"],
-            "uncertainty": unc["total"],
-        }
+        return evidence_outputs(self.evidence_network(x), self.output_dim)
 
 
 class MultiDimensionalDEER(nn.Module):
@@ -49,14 +55,16 @@ class MultiDimensionalDEER(nn.Module):
 
     def __init__(self, input_dim: int, hidden_dim: int = 256,
                  dim_names=("valence", "arousal", "dominance"),
-                 dropout: float = 0.3):
+                 dropout: float = 0.3, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim_names = tuple(dim_names)
         self.feature_processor = MLP(input_dim, [hidden_dim, hidden_dim],
-                                     dropout=dropout, final_activation="relu")
+                                     dropout=dropout, final_activation="relu",
+                                     dtype=dtype)
         for name in self.dim_names:
             self.add_module(f"head_{name}",
-                            DEERPredictionHead(hidden_dim, hidden_dim, dropout))
+                            DEERPredictionHead(hidden_dim, hidden_dim, dropout,
+                                               dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> dict:
         h = self.feature_processor(x)

@@ -44,10 +44,14 @@ def init_flax_style_(module: nn.Module,
     kernels lecun_normal (fan_in = inputs × kernel taps) with zero bias;
     LayerNorm and GroupNorm ones/zeros; Embedding normal with variance
     1/features; LSTM input kernels lecun_normal and recurrent kernels
-    orthogonal per gate (flax's OptimizedLSTMCell), biases zero."""
+    orthogonal per gate (flax's OptimizedLSTMCell), biases zero. A module
+    with its own `reset_flax_(generator)` (the member-stacked layers, the
+    bilinear fusion's kernel) draws its parameters there."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Linear):
+            if hasattr(m, "reset_flax_"):
+                m.reset_flax_(generator)
+            elif isinstance(m, nn.Linear):
                 lecun_normal_(m.weight, m.in_features, generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
@@ -203,4 +207,83 @@ class MLP(nn.Module):
             x = torch.relu(x)
         elif self.final_activation == "softmax":
             x = softmax(x, dim=-1)
+        return x
+
+
+# -- member-stacked layers ------------------------------------------------------
+# The reference stacks identical modules on a leading member axis with
+# flax's nn.vmap (models/stacked.py, MoEFusion's experts). These layers hold
+# such [E, ...] parameters, each member in the layout of its unstacked
+# counterpart, and run every member in one batched product.
+
+
+class StackedLinear(nn.Module):
+    """E Linear layers: weight [E, out, in], bias [E, out]. Input [E, B, in]
+    (one input a member) or [B, in] (the same input for every member) →
+    [E, B, out], computed in `dtype` as `dense` computes one layer."""
+
+    def __init__(self, members: int, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_features = in_features
+        self.weight = nn.Parameter(torch.empty(members, out_features,
+                                               in_features))
+        self.bias = nn.Parameter(torch.zeros(members, out_features))
+        self.dtype = dtype
+        self.reset_flax_()
+
+    def reset_flax_(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            lecun_normal_(self.weight, self.in_features, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = torch.matmul(x.to(dt), self.weight.to(dt).transpose(-1, -2))
+        return y + self.bias.to(dt)[:, None, :]
+
+
+class StackedLayerNorm(nn.Module):
+    """E LayerNorms over [E, B, D]: weight and bias [E, D]; statistics and
+    affine map in float32 as `layer_norm`, the result in `dtype`."""
+
+    def __init__(self, members: int, dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(members, dim))
+        self.bias = nn.Parameter(torch.zeros(members, dim))
+        self.dtype = dtype
+
+    def reset_flax_(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stat = torch.promote_types(self.dtype, torch.float32)
+        h = F.layer_norm(x.to(stat), x.shape[-1:], eps=LN_EPS)
+        h = h * self.weight.to(stat)[:, None, :] + self.bias.to(stat)[:, None, :]
+        return h.to(self.dtype)
+
+
+class StackedMLP(nn.Module):
+    """E copies of `MLP` (no final activation) as `StackedLinear` layers,
+    named `layers.{i}` as `MLP`'s: [B, in] or [E, B, in] → [E, B, out].
+    Dropout draws an independent mask for every member, as the
+    reference's split dropout streams do."""
+
+    def __init__(self, members: int, in_features: int, features: Sequence[int],
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = [in_features, *features]
+        self.layers = nn.ModuleList(
+            StackedLinear(members, a, b, dtype)
+            for a, b in zip(dims[:-1], dims[1:]))
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = self.dropout(torch.relu(x))
         return x

@@ -7,7 +7,11 @@ quantizer K4 (`kernels/quantize_int8.py`), which the reference wrote as a
 Pallas kernel.
 
 The leaves quantized are exactly the reference's: flax's 2-D `*kernel`
-leaves whose contraction (input) width is at least 8. In the state_dict an
+leaves whose contraction (input) width is at least 8. Kernels of other
+ranks pass through in float: BilinearFusion's [in_a, in_b, out] kernel and
+the member-stacked [E, ...] kernels of MoEFusion's experts and of the
+stacked layout's trunk and heads (a member-stacked norm scale [E, D] is a
+norm's, not a kernel). In the state_dict an
 nn.Linear weight is [out, in], so its scale reduces over the last axis; a
 raw `*_kernel` parameter (the calibration layer's) keeps flax's [in, out]
 and reduces over the one before. A deep ensemble's entries carry a leading
@@ -37,7 +41,8 @@ def contraction_axis(key: str, tensor: torch.Tensor,
     """The (negative) axis state_dict entry `key` contracts over when it is
     a quantizable Dense kernel, else None. `member_stacked`: every entry
     carries a leading member axis, so a kernel is 3-D."""
-    if tensor.dim() != 2 + member_stacked or not flax_leaf(key, 2).endswith("kernel"):
+    ndim = tensor.dim() - member_stacked
+    if ndim != 2 or not flax_leaf(key, ndim).endswith("kernel"):
         return None
     axis = -1 if key.endswith(".weight") else -2
     return axis if tensor.shape[axis] >= 8 else None

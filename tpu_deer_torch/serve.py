@@ -53,6 +53,7 @@ from tpu_deer_torch.graphs import BucketGraphs, bucketed_predict
 from tpu_deer_torch.models.deer_model import (
     CompleteDEERModel,
     DEERModelConfig,
+    config_from_meta,
     member_forward,
     structure,
     uncertainty_outputs,
@@ -140,15 +141,18 @@ class InferenceEngine:
                         ensemble_members: int = 1, **kwargs) -> "InferenceEngine":
         """Serve the parameters of a DEERTrainer checkpoint (step "best", None
         for the latest, or a number) with the serving channel its metadata
-        recorded ("eabs" where it recorded none). `ensemble_members=K`
+        recorded ("eabs" where it recorded none), as the model its metadata
+        records (`config_from_meta`: fusion type, stacked layout, widths)
+        unless `config` is given. `ensemble_members=K`
         serves a stacked K-member checkpoint (an EnsembleTrainer's, `cli
         --ensemble K`) as one ensemble."""
         from tpu_deer_torch.train.checkpoint import CheckpointManager
 
-        config = config or DEERModelConfig()
         ckpt = CheckpointManager(checkpoint_dir)
         state = ckpt.restore_params(step)
-        metrics = ckpt.metadata(step)["metrics"]
+        meta = ckpt.metadata(step)
+        metrics = meta["metrics"]
+        config = config or config_from_meta(meta.get("model", {}))
         recorded = int(metrics.get("ensemble_members", 1))
         if recorded != ensemble_members:
             raise ValueError(

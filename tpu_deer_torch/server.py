@@ -550,17 +550,14 @@ class PredictionService:
         `stream_slots`, live sessions on the same weights: an int8 engine
         keeps no float module, so the sessions get one with the dequantized
         weights, as the reference streams `dequantize_tree`'s."""
-        from tpu_deer_torch.models.deer_model import (
-            CompleteDEERModel,
-            DEERModelConfig,
-        )
+        from tpu_deer_torch.models.deer_model import CompleteDEERModel
         from tpu_deer_torch.ops.quantization import dequantize_tree
         from tpu_deer_torch.serve import InferenceEngine
 
         svc_kw = {k: kwargs.pop(k) for k in cls._SERVICE_KW if k in kwargs}
-        config = config or DEERModelConfig()
         engine = InferenceEngine.from_checkpoint(checkpoint_dir, config=config,
                                                  **kwargs)
+        config = engine.model.config  # the checkpoint's layout unless given
         streaming = None
         if stream_slots:
             if engine.ensemble:

@@ -6,7 +6,7 @@ Port of `tpu_deer/train/checkpoint.py`, same layout and policies:
                                    generator state, step), written with
                                    torch.save and read back with
                                    torch.load(weights_only=True)
-    <dir>/step_XXXXXXXX/meta.json  {"step", "metrics", "format"}
+    <dir>/step_XXXXXXXX/meta.json  {"step", "metrics", "format"[, "model"]}
     <dir>/best/                    a copy of the best step's directory
 
 A step is written into `step_XXXXXXXX.partial/` and renamed into place, so
@@ -115,14 +115,17 @@ class CheckpointManager:
 
     # -- save ------------------------------------------------------------
     def save(self, state: dict, step: int, metrics: Optional[dict] = None,
-             is_best: bool = False) -> str:
+             is_best: bool = False, model: Optional[dict] = None) -> str:
         """Write `state` (nested dicts of tensors and numbers) and its
-        metadata as step `step`; copy it to best/ when `is_best`. Returns
-        the step's directory."""
+        metadata as step `step`; copy it to best/ when `is_best`. `model`,
+        the model's layout (`models/deer_model.py:layout_meta`), goes into
+        the metadata beside the metrics. Returns the step's directory."""
         path = self._step_dir(step)
         host_state = _to_host(state)  # caller thread: the state of this step
         meta = {"step": step, "metrics": _to_jsonable(metrics or {}),
                 "format": "torch"}
+        if model:
+            meta["model"] = _to_jsonable(model)
 
         def commit():
             # Written beside the step's directory and renamed into place, so

@@ -99,6 +99,7 @@ from tpu_deer_torch.device import DeviceLike, resolve_device
 from tpu_deer_torch.models.deer_model import (
     CompleteDEERModel,
     DEERModelConfig,
+    layout_meta,
     uncertainty_outputs,
 )
 from tpu_deer_torch.train.checkpoint import CheckpointManager
@@ -280,6 +281,12 @@ class DEERTrainer:
         self._plateau_wait = 0
         self._spike_scale = 1.0
         self._spike_history: list[float] = []
+
+    def _layout_meta(self) -> dict:
+        """The model's layout for a checkpoint's metadata (serving rebuilds
+        the model from it)."""
+        config = getattr(self.model, "config", None)
+        return layout_meta(config) if isinstance(config, DEERModelConfig) else {}
 
     def _place(self, model: CompleteDEERModel) -> CompleteDEERModel:
         return model.to(self.device)
@@ -774,7 +781,7 @@ class DEERTrainer:
                                  "best_serving_channel": best_serving_channel,
                                  **val, **({"ensemble_members": self.n_members}
                                            if self.n_members > 1 else {})},
-                        is_best=is_best)
+                        is_best=is_best, model=self._layout_meta())
                 if patience >= cfg.early_stopping_patience:
                     break
 
