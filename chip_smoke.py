@@ -205,6 +205,25 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               K3a once a text layer, outputs against use_flash=False within
               K3_TOL; HierarchicalDEERFusionModel at batch 256 graphed
               against eager.
+ 15. memory — the memory knobs and the studies that use them: (a) remat
+              (the whole forward checkpointed) on the flagship at full
+              width, batch 4,096, dropout on: its fused steps graphed
+              against plain graphed steps from one init and seed (equal
+              bits expected; the max |Δ| printed otherwise) and against its
+              own eager steps from one state (equal in every bit), step p50
+              and peak memory both ways, and peak memory at width 8, batch
+              8,192; (b) bf16 storage at batch 16,384 under float32 and
+              bf16 compute: every parameter, moment and EMA entry bf16, 4
+              graphed steps equal to 4 eager ones in every bit, step p50
+              with float32 against bf16 storage, a bf16 checkpoint saved
+              and restored bit for bit and served graphed by
+              InferenceEngine.from_checkpoint (equal to eager serving);
+              (c) `python -m tpu_deer_torch.setup_tool --test` in a
+              subprocess (rc 0, its lines printed); (d) the studies cut:
+              the bandwidth chain on a 256 MiB buffer, the matmul ceiling
+              at batch 16,384 in float32 and bf16, and the kernel bench's
+              first attention shape with K3a-c against their plain twins
+              within K3_TOL beside the times.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -216,6 +235,7 @@ from __future__ import annotations
 import base64
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -361,6 +381,10 @@ ENH_UTTERANCES, ENH_SECONDS = 64, 3.0
 DECODES, DECODE_THREADS, DECODE_SECONDS = 192, 8, 3.0
 UNIFIED_B, UNIFIED_T = 8, 2048
 HIER_BATCH = 256
+MEM_BATCH, MEM_STEPS = 4096, 4  # phase 15 (a): the headline recipe's batch
+MEM_WIDE = (8, 8192)  # (a)'s second peak-memory reading: width multiplier, batch
+STORE_BATCH, STORE_STEPS = 16384, 4  # phase 15 (b): the HBM study's batch
+STUDY_BW_FLOATS, STUDY_ITERS = 1 << 26, 16  # phase 15 (d): 256 MiB
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -3651,6 +3675,240 @@ def phase_zoo(torch, k1, k3):
     print(f"zoo: phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
 
+def fused_run(torch, cfg, tcfg, rows, steps, init=None):
+    """A fused (graphed) trainer from the seeded init (or the state_dict
+    `init`): epoch 0 (its warm-up steps and the capture), then epoch 1
+    timed step by step. Returns (trainer, the iterators, its state after
+    epoch 0 on the host, epoch 1's step p50 in ms, the peak memory the run
+    allocated above what was allocated before it)."""
+    from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
+    from tpu_deer_torch.models.deer_model import (
+        CompleteDEERModel,
+        create_complete_deer_model,
+    )
+    from torch.utils._pytree import tree_map
+
+    from tpu_deer_torch.train.trainer import DEERTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if init is None:
+        model = create_complete_deer_model(cfg, seed=SEED, device=DEVICE)
+    else:
+        model = CompleteDEERModel(cfg).to(DEVICE)
+        model.load_state_dict(init)
+    trainer = DEERTrainer(model, tcfg, steps_per_epoch=steps, device=DEVICE)
+    iters = {"mem": BatchIterator(ArrayDataset(rows, "mem"), tcfg.batch_size,
+                                  shuffle=True, drop_last=True, seed=SEED)}
+    trainer.train_epoch(iters, 0)
+    state = tree_map(lambda t: t.detach().cpu().clone()
+                     if isinstance(t, torch.Tensor) else t, trainer.state_dict())
+    replays = trainer.graph_replays
+    times = []
+    saved = timed_method(DEERTrainer, "_fused_step", times, torch)
+    try:
+        trainer.train_epoch(iters, 1)
+    finally:
+        DEERTrainer._fused_step = saved
+    if DEVICE == "cuda" and trainer.graph_replays - replays != steps:
+        raise AssertionError(f"{trainer.graph_replays - replays} of {steps} "
+                             f"steps replayed")
+    return (trainer, iters, state, float(np.median(times)) * 1e3,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def eager_repeat(torch, trainer, iters, state, label):
+    """Epoch 1 again from `state` with eager per-step updates (the same
+    config, fused_epochs off): raises unless every parameter (and EMA
+    entry) equals the graphed run's in every bit."""
+    from tpu_deer_torch.models.deer_model import CompleteDEERModel
+    from tpu_deer_torch.train.trainer import DEERTrainer
+
+    eager = DEERTrainer(CompleteDEERModel(trainer.model.config),
+                        dataclasses.replace(trainer.config, fused_epochs=False),
+                        steps_per_epoch=trainer.steps_per_epoch, device=DEVICE)
+    eager.load_state_dict(state)
+    eager.train_epoch(iters, 1)
+    pairs = [(f"param {k}", v, eager.params[k]) for k, v in trainer.params.items()]
+    if trainer.ema_params is not None:
+        pairs += [(f"ema {k}", v, eager.ema_params[k])
+                  for k, v in trainer.ema_params.items()]
+    differ = [name for name, g, e in pairs if not torch.equal(g, e)]
+    if differ:
+        err = max((g.float() - e.float()).abs().max().item()
+                  for _, g, e in pairs)
+        raise AssertionError(f"{label}: graphed vs eager, {len(differ)} of "
+                             f"{len(pairs)} tensors differ (max |Δ| {err:.3e}; "
+                             f"first {differ[0]})")
+    return len(pairs)
+
+
+def phase_memory(torch):
+    """Phase 15: the memory knobs (remat, bf16 storage), setup_tool and the
+    three studies, cut."""
+    import tempfile
+
+    from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+    from tpu_deer_torch.experiments import hbm_study, kernel_bench
+    from tpu_deer_torch.models.deer_model import (
+        DEERModelConfig,
+        count_parameters,
+        create_complete_deer_model,
+    )
+    from tpu_deer_torch.serve import InferenceEngine
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+    from tpu_deer_torch.train.trainer import TrainingConfig
+
+    t_phase = time.perf_counter()
+    gib = lambda b: f"{b / 2**30:.3f} GiB"
+    # (a) remat: the flagship at full width, dropout on (its default 0.3).
+    rows = make_synthetic_splits(SyntheticConfig(
+        n_train=MEM_BATCH * MEM_STEPS, n_val=8, n_test=8, seed=SEED))["train"]
+    tcfg = TrainingConfig(batch_size=MEM_BATCH, num_epochs=2, warmup_epochs=0,
+                          scheduler="constant", learning_rate=1e-3,
+                          fused_epochs=True, seed=SEED,
+                          dataset_weights={"mem": 1.0})
+    # Each run's peak counts only what it allocated: the plain trainer is
+    # freed (its parameters kept) before the remat run.
+    plain, _, _, p50_plain, peak_plain = fused_run(
+        torch, DEERModelConfig(), tcfg, rows, MEM_STEPS)
+    plain_params = {k: v.detach().clone() for k, v in plain.params.items()}
+    n_params = count_parameters(plain.model)
+    del plain
+    remat, iters, state, p50, peak = fused_run(
+        torch, DEERModelConfig(), dataclasses.replace(tcfg, remat=True), rows,
+        MEM_STEPS)
+    diff = [(k, (v - remat.params[k]).abs().max().item())
+            for k, v in plain_params.items() if not torch.equal(v, remat.params[k])]
+    n = eager_repeat(torch, remat, iters, state, "remat")
+    print(f"memory (a): remat, flagship ({n_params:,} parameters), batch "
+          f"{MEM_BATCH}, dropout on: {MEM_STEPS} graphed steps equal "
+          f"{MEM_STEPS} eager ones in every bit ({n} tensors); remat vs plain "
+          + ("equal in every bit" if not diff else
+             f"{len(diff)} tensors differ, max |Δ| {max(d for _, d in diff):.3e}")
+          + f"; step p50 {p50_plain:.3f} ms plain, {p50:.3f} ms remat; peak "
+          f"memory allocated by the run {gib(peak_plain)} plain, {gib(peak)} "
+          f"remat")
+    del remat, iters, state, plain_params
+    width, batch = MEM_WIDE
+    wide_rows = make_synthetic_splits(SyntheticConfig(
+        n_train=batch * MEM_STEPS, n_val=8, n_test=8, seed=SEED))["train"]
+    wide_cfg = DEERModelConfig(encoder_dim=256 * width, fusion_dim=512 * width)
+    init = {k: v.cpu() for k, v in create_complete_deer_model(
+        wide_cfg, seed=SEED, device=DEVICE).state_dict().items()}
+    n_wide = sum(v.numel() for v in init.values())
+    peaks = {}
+    for flag in (False, True):
+        peaks[flag] = fused_run(
+            torch, wide_cfg, dataclasses.replace(tcfg, batch_size=batch,
+                                                 remat=flag), wide_rows, MEM_STEPS,
+            init=init)[-1]
+    print(f"memory (a): width {width} ({n_wide:,} parameters), batch {batch}: "
+          f"peak memory allocated by the run {gib(peaks[False])} plain, "
+          f"{gib(peaks[True])} remat (the whole forward is one checkpointed "
+          f"block: its backward recomputes every activation before it uses "
+          f"any)")
+    torch.cuda.empty_cache()
+
+    # (b) bf16 storage at the HBM study's batch.
+    rows = make_synthetic_splits(SyntheticConfig(
+        n_train=STORE_BATCH * STORE_STEPS, n_val=8, n_test=8, seed=SEED))["train"]
+    tcfg = dataclasses.replace(tcfg, batch_size=STORE_BATCH, ema_decay=0.999)
+    p50 = {}
+    for compute in ("float32", "bfloat16"):
+        for storage in ("float32", "bfloat16"):
+            trainer, iters, state, p50[compute, storage], _ = fused_run(
+                torch, DEERModelConfig(compute_dtype=compute),
+                dataclasses.replace(tcfg, storage_dtype=storage), rows, STORE_STEPS)
+            if storage != "bfloat16":
+                continue
+            opt = trainer.optimizer.state
+            dtypes = {v.dtype for group in (trainer.params, opt["mu"], opt["nu"],
+                                            opt["ema"]) for v in group.values()}
+            if dtypes != {torch.bfloat16}:
+                raise AssertionError(f"bf16 storage, {compute} compute: dtypes "
+                                     f"{sorted(map(str, dtypes))}")
+            n = eager_repeat(torch, trainer, iters, state,
+                             f"bf16 storage, {compute} compute")
+            print(f"memory (b): bf16 storage, {compute} compute, batch "
+                  f"{STORE_BATCH}: every parameter, moment and EMA entry bf16; "
+                  f"{STORE_STEPS} graphed steps equal {STORE_STEPS} eager ones "
+                  f"in every bit ({n} tensors)")
+            if compute == "float32":
+                stored = trainer
+    print("memory (b): step p50 at batch " + f"{STORE_BATCH}: " + "; ".join(
+        f"{c} compute: {p50[c, 'float32']:.3f} ms float32 storage, "
+        f"{p50[c, 'bfloat16']:.3f} ms bf16" for c in ("float32", "bfloat16")))
+    with tempfile.TemporaryDirectory(prefix="bf16_ckpt_") as root:
+        CheckpointManager(root).save(stored.state_dict(), step=stored.step,
+                                     metrics={"serving_channel": "eabs"},
+                                     is_best=True, model=stored._layout_meta())
+        back = CheckpointManager(root).restore("best", map_location="cpu")
+        want = stored.state_dict()
+        for key in ("model", "optimizer"):
+            pairs = ([(k, v, want[key][k]) for k, v in back[key].items()]
+                     if key == "model" else
+                     [(f"{g}.{k}", v, want[key][g][k]) for g in ("mu", "nu", "ema")
+                      for k, v in back[key][g].items()])
+            for name, got, ref in pairs:
+                if got.dtype != torch.bfloat16 or not torch.equal(got, ref.cpu()):
+                    raise AssertionError(f"bf16 checkpoint {key} {name}: not "
+                                         f"restored bit for bit")
+        live = InferenceEngine.from_checkpoint(root, device=DEVICE)
+        live.warmup()
+        plain_engine = InferenceEngine.from_checkpoint(root, device=DEVICE,
+                                                       graphs=False)
+        if {p.dtype for p in live.model.parameters()} != {torch.bfloat16}:
+            raise AssertionError("from_checkpoint did not serve the stored bf16")
+        feats = tuple(rows[k][:256] for k in ("audio", "video", "text"))
+        bits, total, _ = graph_vs_eager(torch, "bf16 checkpoint predict",
+                                        live.predict(*feats),
+                                        plain_engine.predict(*feats))
+        if bits:
+            raise AssertionError(f"bf16 checkpoint predict: {bits} of {total} "
+                                 f"elements differ graphed vs eager")
+    print(f"memory (b): bf16 checkpoint (step {stored.step}) saved and restored "
+          f"bit for bit (parameters, moments, EMA); served graphed by "
+          f"InferenceEngine.from_checkpoint in bf16 at 256 rows, equal to "
+          f"eager serving in every bit")
+    del stored, trainer
+    torch.cuda.empty_cache()
+
+    # (c) the setup tool's self-test, as a user runs it.
+    with tempfile.TemporaryDirectory(prefix="setup_") as root:
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_deer_torch.setup_tool", "--root", root,
+             "--test"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"memory (c): setup_tool | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"setup_tool --test: rc {proc.returncode}\n"
+                             f"{proc.stderr[-2000:]}")
+
+    # (d) the three studies, cut.
+    dev = torch.device(DEVICE)
+    bw = hbm_study.measure_hbm_bandwidth(STUDY_BW_FLOATS, STUDY_ITERS, dev)
+    mm = [hbm_study.measure_matmul_ceiling(STORE_BATCH, d, STUDY_ITERS, dev)
+          for d in ("float32", "bfloat16")]
+    row = kernel_bench.attention_row(kernel_bench.SHAPES[0], 10, dev)
+    print(f"memory (d): bandwidth chain on {bw['buffer_mb']:.0f} MB: "
+          f"{bw['gbps']:.1f} GB/s; matmul chain at batch {STORE_BATCH}: "
+          + ", ".join(f"{m['dtype']} {m['tflops']:.1f} TFLOP/s "
+                      f"({m['mfu_pct']:.1f}% of {m['peak_tflops']:.0f})" for m in mm))
+    err = row["max_abs_err"]
+    print(f"memory (d): attention {row['shape']}: K3a/K3b/K3c vs plain twins "
+          f"max abs err {err['K3a']:.2e} / {err['K3b']:.2e} / {err['K3c']:.2e} "
+          f"(K3_TOL); fwd K3 {row['flash_fwd_ms']:.3f} ms, plain "
+          f"{row['plain_fwd_ms']:.3f}, SDPA {row['sdpa_fwd_ms']:.3f}; fwd+bwd "
+          f"K3 {row['flash_bwd_ms']:.3f}, plain {row['plain_bwd_ms']:.3f}, "
+          f"SDPA {row['sdpa_bwd_ms']:.3f}; auto picks {row['auto_fwd_pick']} / "
+          f"{row['auto_bwd_pick']}")
+    print(f"memory: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3710,6 +3968,7 @@ def main() -> int:
                            k4.quantize_int8_stochastic_bits))
     phase_corpus(torch, k1, k3, emb)
     phase_zoo(torch, k1, k3)
+    phase_memory(torch)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

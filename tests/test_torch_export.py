@@ -94,6 +94,13 @@ def artifacts(tmp_path_factory):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _loaded(tdir, jdir):
+    """The port's and JAX's engines over one variant's artifacts, loaded
+    once for the module (JAX compiles each bucket at its first call)."""
+    return load_exported(tdir, device="cpu"), jload(jdir)
+
+
 def _feats(seed, n):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=(n, d)).astype(np.float32) for d in DIMS]
@@ -117,8 +124,9 @@ def _assert_same(got, ref, rtol=1e-4, atol=1e-5):
 def test_exported_matches_jax(artifacts, variant, n):
     tdir, jdir, _, _ = artifacts[variant]
     feats = _feats(n, n)
-    got = load_exported(tdir, device="cpu").predict(*feats)
-    ref = {k: np.asarray(v) for k, v in jload(jdir).predict(*feats).items()}
+    engine, jengine = _loaded(tdir, jdir)
+    got = engine.predict(*feats)
+    ref = {k: np.asarray(v) for k, v in jengine.predict(*feats).items()}
     assert all(len(v) == n for v in got.values())
     _assert_same(got, ref)
 
@@ -131,7 +139,7 @@ def test_exported_matches_live_engine(artifacts, variant):
     live = InferenceEngine(model, BUCKETS, quantize_weights=quantize,
                            ood_detector=_detectors()[1] if ood else None,
                            ood_fpr=FPR, device="cpu").predict(*feats)
-    engine = load_exported(artifacts[variant][0], device="cpu")
+    engine = _loaded(*artifacts[variant][:2])[0]
     engine.warmup()  # eager on the CPU: one run of each bucket
     got = engine.predict(*feats)
     _assert_same(got, {k: live[k] for k in got}, rtol=1e-6, atol=0)
@@ -160,7 +168,7 @@ def test_manifest_matches_jax(artifacts, variant):
 
 
 def test_padding_and_chunking(artifacts):
-    engine = load_exported(artifacts["int8"][0], device="cpu")
+    engine = _loaded(*artifacts["int8"][:2])[0]
     one = [engine.predict(*(f[i:i + 1] for f in _feats(7, 19)))
            for i in range(19)]
     whole = engine.predict(*_feats(7, 19))

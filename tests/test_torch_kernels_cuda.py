@@ -14,7 +14,9 @@ atol 2e-5 (float32 FMAs in another order than the plain twin's cuBLAS
 GEMMs, over up to 300 keys). K4: equal int8 values and scale bits (the
 same words, IEEE division). The embedding gradient: rtol 1e-5, atol 1e-3
 against the plain twin in float64 (a float32 sum of up to ~130,000 rows of
-one id, taken in pieces of 64); bit for bit against a second run.
+one id, taken in pieces of 64); bit for bit against a second run. Also
+on the card: remat's graphed fused steps against its eager steps, bit for
+bit (the recomputation's dropout draws under a CUDA graph).
 """
 
 import numpy as np
@@ -486,3 +488,38 @@ def test_unified_encoder_text_takes_k3a_at_2048(device):
         ref = enc(token_ids=ids, text_mask=mask)
     for key in ref:
         torch.testing.assert_close(got[key], ref[key], rtol=1e-4, atol=5e-5)
+
+
+def test_remat_graphed_fused_step_equals_eager(device):
+    """remat=True with dropout on: the fused steps replayed from their CUDA
+    graph (the recomputation reading the step's seed from the registered
+    second generator state) equal eager per-step updates from the same
+    state in every bit."""
+    from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
+    from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+    from tpu_deer_torch.models.deer_model import DEERModelConfig
+    from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
+
+    width = dict(encoder_dim=64, fusion_dim=128, encoder_layers=1, dropout=0.3)
+    rows = make_synthetic_splits(SyntheticConfig(n_train=64 * 6, n_val=8,
+                                                 n_test=8, seed=11))["train"]
+    iters = {"synthetic": BatchIterator(ArrayDataset(rows, "synthetic"), 64,
+                                        shuffle=True, drop_last=True, seed=7)}
+
+    def trainer(fused):
+        cfg = TrainingConfig(batch_size=64, num_epochs=2, remat=True, seed=7,
+                             fused_epochs=fused, dataset_weights={"synthetic": 1.0})
+        return DEERTrainer(create_complete_deer_model(DEERModelConfig(**width),
+                                                      seed=3, device=device),
+                           cfg, steps_per_epoch=6, device=device)
+
+    graphed = trainer(True)
+    graphed.train_epoch(iters, 0)  # warm-up steps, capture, replays
+    eager = trainer(False)
+    eager.load_state_dict(graphed.state_dict())
+    replays = graphed.graph_replays
+    graphed.train_epoch(iters, 1)
+    eager.train_epoch(iters, 1)
+    assert graphed.graph_replays - replays == 6
+    for name, v in graphed.params.items():
+        assert torch.equal(v, eager.params[name]), name

@@ -378,10 +378,17 @@ def test_factories(tmp_path):
 
 
 def test_unported_knobs_raise(tmp_path):
-    model = CompleteDEERModel(DEERModelConfig(**WIDTH))
+    # The memory knobs are ported: each builds and steps
+    # (tests/test_torch_memory_knobs.py holds them against the reference).
+    (tr, _), = _datasets("A").values()
     for kw in (dict(remat=True), dict(storage_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            DEERTrainer(model, TrainingConfig(**kw), device="cpu")
+        knob = DEERTrainer(CompleteDEERModel(DEERModelConfig(**WIDTH)),
+                           TrainingConfig(batch_size=16, num_epochs=1, **kw),
+                           steps_per_epoch=6, device="cpu")
+        metrics = knob.train_epoch({"synthetic": BatchIterator(
+            ArrayDataset(tr), 16, shuffle=True, drop_last=True)}, 0)
+        assert np.isfinite(metrics["loss"]) and knob.step == 6
+    model = CompleteDEERModel(DEERModelConfig(**WIDTH))
     with pytest.raises(NotImplementedError):
         DEERTrainer(model, TrainingConfig(), mesh=object(), device="cpu")
     trainer = DEERTrainer(model, TrainingConfig(rng_impl="threefry2x32"),

@@ -183,6 +183,13 @@ def flax_leaf(key: str, ndim: int) -> str:
     return "scale" if ndim - member_axes(key) == 1 else "kernel"
 
 
+def flax_key(key: str, ndim: int) -> tuple[str, ...]:
+    """The flax path of state_dict entry `key` of rank `ndim` (not an LSTM
+    tensor), leaf name included: the order of these keys is the order
+    `jax.tree_util.tree_leaves` takes the reference's parameters in."""
+    return _flax_path(key)[:-1] + (flax_leaf(key, ndim),)
+
+
 def flax_quantized_to_state_dict(q_tree: Mapping, scale_tree: Mapping
                                  ) -> tuple[dict, dict]:
     """The reference's `quantize_tree` output (q_tree, scale_tree) → the

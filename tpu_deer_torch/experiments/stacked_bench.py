@@ -29,21 +29,7 @@ import torch
 
 from tpu_deer_torch.experiments import twin
 
-FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 SEED = 0
-
-
-def _median_ms(fn, k: int, reps: int, sync) -> float:
-    fn()
-    sync()
-    runs = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(k):
-            fn()
-        sync()
-        runs.append((time.perf_counter() - t0) / k * 1e3)
-    return float(np.median(runs))
 
 
 def _graphed(fn, device):
@@ -87,7 +73,7 @@ def main(argv=None) -> int:
     )
 
     cuda = device.type == "cuda"
-    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    sync = twin.synchronize(device)
     b = args.batch
     splits = make_synthetic_splits(SyntheticConfig(n_train=2 * b, n_val=8,
                                                    n_test=8, seed=SEED))
@@ -110,10 +96,10 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 return model(*x)["mu_all"]
 
-        rows["fwd"][f"{key}_eager"] = _median_ms(fwd, args.k, args.reps, sync)
+        rows["fwd"][f"{key}_eager"] = twin.median_ms(fwd, args.k, args.reps, sync)
         if cuda:
             replay, _ = _graphed(fwd, device)
-            rows["fwd"][f"{key}_graphed"] = _median_ms(replay, args.k,
+            rows["fwd"][f"{key}_graphed"] = twin.median_ms(replay, args.k,
                                                        args.reps, sync)
         flops[f"fwd_{key}"] = cost_analysis_summary(fwd)["flops"]
 
@@ -140,12 +126,14 @@ def main(argv=None) -> int:
     elapsed = time.time() - t0
 
     bf16_peak = peak_flops_per_chip(device)
+    fp32_peak = peak_flops_per_chip(device, dtype="float32")
     mfu = {}
     for stage, r in rows.items():
         for name, ms in r.items():
             f = flops[f"{stage}_{name.split('_')[0]}"]
             mfu[f"{stage}_{name}"] = {
-                "fp32_pct": 100.0 * f / (ms / 1e3) / FP32_PEAK if cuda else None,
+                "fp32_pct": (100.0 * f / (ms / 1e3) / fp32_peak
+                             if cuda and fp32_peak else None),
                 "bf16_pct": (100.0 * f / (ms / 1e3) / bf16_peak
                              if cuda and bf16_peak else None)}
     fmt = lambda v: "not measured" if v is None else f"{v:.1f}%"

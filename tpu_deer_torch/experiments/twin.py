@@ -2,8 +2,9 @@
 device, the output paths and the reading of the reference's result beside
 this run's.
 
-Every twin runs float32 with TF32 off on the card (`--platform cuda`, the
-default, raising without one) or on the CPU (`--platform cpu`), writes
+Every twin runs with TF32 off on the card (`--platform cuda`, the default,
+raising without one) or on the CPU (`--platform cpu`), in float32 unless
+its reference computes in bf16 (the HBM and scale studies), writes
 `results_torch/RESULTS_<name>_h100.{json,md}` (`--quick`: `..._quick`,
 git-ignored), and compares its quality with the reference's committed
 `experiments/RESULTS_<name>.json`: a CCC gap beyond `CCC_GAP` is flagged in
@@ -16,8 +17,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Optional
+import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir)
@@ -61,6 +64,28 @@ def gap(ours: float, ref: Optional[float]) -> str:
         return "n/a"
     d = ours - ref
     return f"{d:+.3f}" + (" **(gap)**" if abs(d) > CCC_GAP else "")
+
+
+def synchronize(device: torch.device) -> Callable[[], None]:
+    """A function that waits for `device`'s work (nothing on the CPU)."""
+    if device.type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
+
+
+def median_ms(fn, k: int, reps: int, sync: Callable[[], None]) -> float:
+    """ms a call of fn(): the median over `reps` runs of `k` calls, each
+    run ending in `sync()`, after one warm-up call."""
+    fn()
+    sync()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        sync()
+        runs.append((time.perf_counter() - t0) / k * 1e3)
+    return float(np.median(runs))
 
 
 def write(out: str, md: list[str], payload: dict) -> str:

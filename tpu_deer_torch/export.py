@@ -171,6 +171,15 @@ def export_inference(
                 **{f"scale/{k}": v for k, v in scales.items()}}
     else:
         flat = dict(state)
+    low = sorted(k for k, v in flat.items()
+                 if v.is_floating_point() and v.element_size() < 4)
+    if low:
+        # The reference writes such leaves into params.npz as numpy's void
+        # |V2, which its ExportedEngine cannot load (ROADMAP queue 3).
+        raise ValueError(
+            f"cannot export parameters stored below float32 ({low[0]} is "
+            f"{flat[low[0]].dtype}; {len(low)} in all): params.npz is numpy, "
+            "which has no bfloat16 — export a float32 copy of the model")
     n_params = sum(v.numel() for k, v in flat.items()
                    if not k.startswith("scale/"))
     if ood_detector is not None:

@@ -9,7 +9,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_deer_torch.core.nig import nig_params_from_evidence, nig_uncertainties
-from tpu_deer_torch.models.layers import MLP, lecun_normal_
+from tpu_deer_torch.models.layers import (
+    MLP,
+    below_float32,
+    lecun_normal_,
+    weak_constant,
+)
 
 
 def evidence_outputs(evidence: torch.Tensor, output_dim: int = 1) -> dict:
@@ -85,6 +90,15 @@ class MultiDimensionalDEER(nn.Module):
 _TEMPERATURE_INIT = 0.5413248
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus, jnp.logaddexp(x, 0): below float32 op by op, each
+    op rounded to x's dtype, as XLA computes it (a bf16-stored temperature
+    under `storage_dtype`); F.softplus otherwise."""
+    if not below_float32(x.dtype):
+        return F.softplus(x)
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 class UncertaintyCalibrationLayer(nn.Module):
     """Learned per-dimension temperature + a shared monotone 1→32→16→1
     MLP-sigmoid map, applied to all dimensions in one batched pass.
@@ -116,12 +130,16 @@ class UncertaintyCalibrationLayer(nn.Module):
                 getattr(self, f"{name}_bias").zero_()
 
     def _monotone_dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        kernel = getattr(self, f"{name}_kernel")
-        return x @ torch.abs(kernel) + getattr(self, f"{name}_bias")
+        # jnp's promotion: bf16-stored parameters meet float32 inputs in
+        # float32.
+        kernel = torch.abs(getattr(self, f"{name}_kernel"))
+        dt = torch.promote_types(x.dtype, kernel.dtype)
+        return x.to(dt) @ kernel.to(dt) + getattr(self, f"{name}_bias")
 
     def forward(self, uncertainties: torch.Tensor) -> torch.Tensor:
         uncertainties = uncertainties.detach()
-        temperature = F.softplus(self.temperature) + 1e-3
+        t = self.temperature
+        temperature = _softplus(t) + weak_constant(1e-3, t.dtype)
         scaled = uncertainties / temperature[None, :]
         b, d = scaled.shape
         flat = scaled.reshape(b * d, 1)

@@ -92,16 +92,38 @@ def torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
+def below_float32(dtype: torch.dtype) -> bool:
+    """A floating dtype narrower than float32 (bf16, float16)."""
+    return dtype.is_floating_point and torch.finfo(dtype).bits < 32
+
+
+def weak_constant(c: float, dtype: torch.dtype) -> float:
+    """The Python scalar `c` as JAX casts a weakly typed constant to
+    `dtype` before an op with an array of that dtype (e.g. 0.999 → 1.0 in
+    bf16), where torch would keep `c` in float32 for the op. Computed on
+    the host without tensors, so that a traced forward holds no constant."""
+    if dtype == torch.float64:
+        return float(c)
+    if dtype == torch.float16:
+        return float(np.float16(c))
+    bits = int(np.array(c, np.float32).view(np.uint32))
+    if dtype == torch.bfloat16:  # round to nearest even on the upper half
+        bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """`layer` as flax's Dense(dtype=dtype): input, weight and bias cast to
     `dtype`, the product returned in it. The stored parameters stay as they
-    are; their gradients come back in their own dtype.
+    are (float32, or bf16 under a trainer's `storage_dtype`); their
+    gradients come back in their own dtype.
 
-    Below the parameters' precision the bias is added to the product after
-    it was rounded to `dtype`, as flax adds it: a bias fused into the GEMM
-    rounds once, and on the CPU ATen's bf16 addmm rounds another way."""
-    if dtype == layer.weight.dtype:
-        return F.linear(x.to(dtype), layer.weight, layer.bias)
+    Below float32 the bias is added to the product after it was rounded to
+    `dtype`, as flax adds it, whatever the parameters' dtype: a bias fused
+    into the GEMM rounds once, and on the CPU ATen's bf16 addmm rounds
+    another way."""
+    if not below_float32(dtype):
+        return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
@@ -114,10 +136,6 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor,
     return F.layer_norm(x.to(stat), norm.normalized_shape,
                         norm.weight.to(stat), norm.bias.to(stat),
                         norm.eps).to(dtype)
-
-
-def _below_float32(x: torch.Tensor) -> bool:
-    return torch.finfo(x.dtype).bits < 32
 
 
 class _Logistic(torch.autograd.Function):
@@ -148,7 +166,7 @@ class _Logistic(torch.autograd.Function):
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.sigmoid (`_Logistic` below float32)."""
-    if not _below_float32(x):
+    if not below_float32(x.dtype):
         return torch.sigmoid(x)
     return _Logistic.apply(x)
 
@@ -157,7 +175,7 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """jax.nn.softmax: below float32 exp(x − max) (the max taking no
     gradient), its sum (accumulated in float32) and the quotient each
     rounded to x's dtype, as JAX computes and differentiates it."""
-    if not _below_float32(x):
+    if not below_float32(x.dtype):
         return torch.softmax(x, dim=dim)
     e = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
     return e / e.sum(dim=dim, keepdim=True)

@@ -162,7 +162,9 @@ class InferenceEngine:
         if ensemble_members > 1:
             return cls(structure(config), ensemble=True, params=state, **kwargs)
         model = CompleteDEERModel(config)
-        model.load_state_dict(state)
+        # In the stored dtype (bf16 under a trainer's storage_dtype), as the
+        # reference serves the restored leaves.
+        model.load_state_dict(state, assign=True)
         return cls(model, **kwargs)
 
     def _outputs(self, out: dict) -> dict[str, torch.Tensor]:

@@ -35,7 +35,7 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.func import stack_module_state
+from torch.func import functional_call, stack_module_state, vmap
 
 from tpu_deer_torch.core.nig import combine_members
 from tpu_deer_torch.device import DeviceLike, resolve_device
@@ -46,7 +46,9 @@ from tpu_deer_torch.models.deer_model import (
     member_forward,
     structure,
 )
+from tpu_deer_torch.models.layers import weak_constant
 from tpu_deer_torch.train.optim import AdamW
+from tpu_deer_torch.train.rng import remat
 from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
 
 
@@ -76,14 +78,23 @@ def create_deer_ensemble(config: Optional[DEERModelConfig] = None,
 class MemberAdamW(AdamW):
     """AdamW over member-stacked parameters with the global-norm clip taken
     per member: member k's gradients are scaled by max_norm / (norm_k +
-    1e-12) where norm_k >= max_norm (the reference's `_per_member_clip`)."""
+    1e-12) where norm_k >= max_norm (the reference's `_per_member_clip`);
+    low-precision leaves as `optax.global_norm` and that rule compute them
+    there, in the leaves' dtype."""
 
     def clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
-        norms = torch.stack([torch.linalg.vector_norm(g.reshape(len(g), -1), dim=1)
-                             for g in grads])
-        norm = torch.linalg.vector_norm(norms, dim=0)
-        scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
-                            self.max_norm / (norm + 1e-12))
+        if self.low:
+            norm = torch.sqrt(self._sum_of_squares(grads, member_dims=1))
+            dt = norm.dtype
+            scale = torch.where(
+                norm < self.max_norm, torch.ones_like(norm),
+                weak_constant(self.max_norm, dt) / (norm + weak_constant(1e-12, dt)))
+        else:
+            norms = torch.stack([torch.linalg.vector_norm(g.reshape(len(g), -1), dim=1)
+                                 for g in grads])
+            norm = torch.linalg.vector_norm(norms, dim=0)
+            scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
+                                self.max_norm / (norm + 1e-12))
         for g in grads:
             g.mul_(scale.view(-1, *(1,) * (g.dim() - 1)))
         return grads
@@ -97,6 +108,7 @@ class EnsembleTrainer(DEERTrainer):
     containment — is the single model's."""
 
     optimizer_cls = MemberAdamW
+    _member_dims = 1
 
     def __init__(self, model: CompleteDEERModel, stacked_params: dict,
                  config: TrainingConfig = TrainingConfig(),
@@ -135,10 +147,21 @@ class EnsembleTrainer(DEERTrainer):
 
     # -- training ----------------------------------------------------------
     def _loss_fn(self, batch: dict, dataset_weight):
-        losses, auxes = member_forward(
-            self.model, self._params, batch["audio"], batch["video"],
-            batch["text"], lambda out: self._loss_terms(out, batch, dataset_weight),
-            randomness="different")
+        args = (batch["audio"], batch["video"], batch["text"])
+        terms = lambda out: self._loss_terms(out, batch, dataset_weight)
+        if self.config.remat:
+            # One checkpointed block around the vmapped member forwards:
+            # the reference checkpoints each member's forward inside its
+            # vmap, which torch.func.vmap refuses (the recomputation runs
+            # outside the vmap); both recompute the same function.
+            forward = lambda params, *x: vmap(
+                lambda p: functional_call(self.model, p, x),
+                randomness="different")(params)
+            out = remat(forward, self._params, *args, recompute=self._recompute)
+            losses, auxes = vmap(terms)(out)
+        else:
+            losses, auxes = member_forward(self.model, self._params, *args,
+                                           terms, randomness="different")
         aux = {k: v.mean(0) for k, v in auxes.items()}
         aux["loss"] = losses.detach().mean()
         return losses.sum(), aux

@@ -18,6 +18,24 @@ an optional update gate (a device 0/1 scalar) stay on the device: a step
 does not wait for the card. A parameter with no gradient takes a zero one,
 as in optax, where the moments then decay and weight decay still applies.
 
+Parameters stored below float32 (a trainer's `storage_dtype="bfloat16"`)
+keep their moments, EMA and accumulated gradient in their own dtype, and
+their update copies optax's arithmetic on such leaves op by op, each op
+rounded to the leaf's dtype as XLA rounds it: a Python constant is first
+cast to the leaf's dtype (b2 = 0.999 becomes 1.0 in bf16), the bias
+corrections are the table's float32 values cast to it, the learning rate
+is cast to it before it scales the update, and the trainer's float32
+scale (the caller's `lr_scale` times the gate) and the addition to the
+parameter run in float32 before the result is rounded back, as the
+reference's `updates * scale` and `optax.apply_updates` do. The clip's
+global norm sums each leaf's squares in float32, rounds the sum to the
+leaf's dtype and adds the leaves' sums in that dtype in `norm_order` (the
+reference's flax tree order), as `optax.global_norm` does. Where XLA's
+compiled program drops a rounding of optax's (it keeps a product in
+float32 when only a float32 op reads it), the port drops it too: these
+places are marked. A float32 parameter takes the float32 path below,
+unchanged.
+
 The update reads no host value that changes from step to step, so that a
 CUDA graph can capture it once and replay it (`DEERTrainer`'s fused
 epochs): the update count lives on the device too (`count`, which the
@@ -36,6 +54,8 @@ from typing import Callable, Optional
 
 import torch
 
+from tpu_deer_torch.models.layers import below_float32, weak_constant
+
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -50,8 +70,14 @@ class AdamW:
     def __init__(self, params: dict[str, torch.nn.Parameter],
                  groups: dict[str, tuple[float, list[str]]],
                  schedule: Callable[[int], float], weight_decay: float,
-                 max_norm: float, accum_steps: int = 1, ema_decay: float = 0.0):
+                 max_norm: float, accum_steps: int = 1, ema_decay: float = 0.0,
+                 norm_order: Optional[list[str]] = None):
         self.params = params
+        # The order the low-precision global norm adds its leaves in.
+        self.norm_order = list(norm_order or params)
+        # The low-precision leaves, in `params` order.
+        self.low = dict.fromkeys(n for n, p in params.items()
+                                 if below_float32(p.dtype))
         self.groups = groups
         self.schedule = schedule
         self.weight_decay = weight_decay
@@ -99,11 +125,40 @@ class AdamW:
                              dtype=torch.float64)
         self.table = table.to(torch.float32).to(self.count.device)
 
+    def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global norm of `grads` (in `params` order): in float32 over
+        float32 leaves, else as `optax.global_norm` sums low-precision
+        leaves (in the leaves' dtype)."""
+        if not self.low:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        return torch.sqrt(self._sum_of_squares(grads))
+
+    def _sum_of_squares(self, grads: list[torch.Tensor],
+                        member_dims: int = 0) -> torch.Tensor:
+        """Σ over leaves, in `norm_order`, of each leaf's squares summed in
+        float32 and rounded to its dtype; the leading `member_dims` axes
+        kept."""
+        by_name = dict(zip(self.params, grads))
+        total = None
+        for name in self.norm_order:
+            g = by_name[name]
+            g32 = g.float()  # XLA squares in float32
+            sq = (g32 * g32).reshape(*g.shape[:member_dims], -1).sum(-1).to(g.dtype)
+            total = sq if total is None else total + sq
+        return total
+
     def clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         """Scale `grads` in place to a global norm of at most max_norm."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, torch.where(
-            norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm))
+        norm = self.global_norm(grads)
+        if not self.low:
+            torch._foreach_mul_(grads, torch.where(
+                norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm))
+            return grads
+        # optax: select(norm < max_norm, g, (g / norm) * max_norm).
+        keep = norm < self.max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, (g / norm.to(g.dtype))
+                                * weak_constant(self.max_norm, g.dtype)))
         return grads
 
     def step(self, grads: list[Optional[torch.Tensor]], gate=None,
@@ -143,12 +198,23 @@ class AdamW:
         grads = dict(zip(names, self.clip(grads)))
         with torch.no_grad():
             if "ema" in st:
-                ema = [st["ema"][k] for k in names]
-                torch._foreach_mul_(ema, self.ema_decay)
-                torch._foreach_add_(ema, [self.params[k] for k in names],
-                                    alpha=1.0 - self.ema_decay)
+                wide = [k for k in names if k not in self.low]
+                if wide:
+                    ema = [st["ema"][k] for k in wide]
+                    torch._foreach_mul_(ema, self.ema_decay)
+                    torch._foreach_add_(ema, [self.params[k] for k in wide],
+                                        alpha=1.0 - self.ema_decay)
+                for k in self.low:
+                    e, p = st["ema"][k], self.params[k]
+                    e.copy_(e * weak_constant(self.ema_decay, e.dtype)
+                            + p * weak_constant(1.0 - self.ema_decay, e.dtype))
             lr, bc1, bc2 = self.table.index_select(0, self.count)[0].unbind()
             for scale, group in self.groups.values():
+                for k in group:
+                    if k in self.low:
+                        self._update_low(k, grads[k], lr * scale, bc1, bc2,
+                                         lr_scale if gate is None else gate * lr_scale)
+                group = [k for k in group if k not in self.low]
                 if not group:
                     continue
                 p = [self.params[k] for k in group]
@@ -169,6 +235,26 @@ class AdamW:
                 torch._foreach_mul_(upd, factor if gate is None else gate * factor)
                 torch._foreach_sub_(p, upd)
             self.count.add_(1)
+
+    def _update_low(self, name: str, g: torch.Tensor, lr, bc1, bc2,
+                    factor) -> None:
+        """optax.adamw's update of one low-precision leaf, op by op, then
+        the reference trainer's `updates * factor` and `apply_updates` in
+        float32 (`factor`: lr_scale, times the gate where there is one).
+        Without accumulation XLA folds `factor` into the learning rate and
+        drops the rounding of their product with the update; under
+        optax.MultiSteps the product is rounded first."""
+        p, mu, nu = self.params[name], self.state["mu"][name], self.state["nu"][name]
+        c = lambda v: weak_constant(v, p.dtype)
+        mu.copy_(g * c(1.0 - B1) + mu * c(B1))
+        nu.copy_((g * g) * c(1.0 - B2) + nu * c(B2))
+        upd = (mu / bc1.to(p.dtype)) / (torch.sqrt(nu / bc2.to(p.dtype)) + c(EPS))
+        upd = upd + c(self.weight_decay) * p
+        neg_lr = (-lr).to(p.dtype)
+        if self.accum > 1:
+            p.copy_(p.float() + (neg_lr * upd).float() * factor)
+        else:  # XLA keeps the learning rate's product in float32 here
+            p.copy_(p.float() + upd.float() * (factor * neg_lr.float()))
 
 
 def _copy_into(dst: dict, src: dict) -> None:

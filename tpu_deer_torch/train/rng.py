@@ -25,6 +25,19 @@ so a step's masks depend only on the trainer's seed and the step, in both
 forms. `chip_smoke.py` phase 10(d) holds graphed steps against eager ones
 on the card.
 
+A forward under `remat` (the trainers' `TrainingConfig.remat`, the
+reference's `jax.checkpoint` of the whole forward) keeps none of its
+activations: the backward runs it again, and that recomputation must draw
+the forward's dropout masks. On the CPU `torch.utils.checkpoint` keeps
+the generator's state for it. On the card it cannot: reading the card
+generator's seed and offset is refused inside a CUDA graph capture. There
+the trainer keeps a second generator state (`RecomputeRNG`), seeded with
+each step's seed beside the global generator; the recomputation runs with
+that state swapped in (`graphsafe_set_state`), so its dropouts start from
+the step's offset 0 of the same seed, as the forward's did. A captured
+graph registers the second state, so its replays read its seed as they
+read the global generator's.
+
 A seeded step repeats only if its sums do too. The reference's gradients
 are XLA's, which give the same bits on every run. On the card, cuDNN's
 default convolution backward (the raw model's video encoder) adds in an
@@ -37,8 +50,10 @@ has a kernel of its own for the same reason, `kernels/embedding.py`.)
 from __future__ import annotations
 
 import contextlib
+from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -67,13 +82,59 @@ def seed_global(device: torch.device, seed: int) -> None:
         torch.default_generator.manual_seed(seed)
 
 
+class RecomputeRNG:
+    """The card's second generator state for a recomputed forward (module
+    docstring): `seed` it with each step's seed, `register` it with a graph
+    before its capture, and run the recomputation inside `recompute()`."""
+
+    def __init__(self, device: torch.device):
+        self.generator = torch.cuda.default_generators[_cuda_index(device)]
+        self.twin = self.generator.clone_state()
+
+    def seed(self, seed: int) -> None:
+        self.twin.manual_seed(seed)
+
+    def register(self, graph: torch.cuda.CUDAGraph) -> None:
+        graph.register_generator_state(self.twin)
+
+    @contextlib.contextmanager
+    def recompute(self):
+        saved = self.generator.graphsafe_get_state()
+        self.generator.graphsafe_set_state(self.twin)
+        try:
+            yield
+        finally:
+            self.generator.graphsafe_set_state(saved)
+
+
+def seed_step(device: torch.device, seed: int,
+              recompute: Optional[RecomputeRNG] = None) -> None:
+    """Seed a step's draws: the global generator and, under remat on the
+    card, the recomputation's state."""
+    seed_global(device, seed)
+    if recompute is not None:
+        recompute.seed(seed)
+
+
+def remat(fn: Callable, *args, recompute: Optional[RecomputeRNG] = None):
+    """fn(*args) as one checkpointed block (`torch.utils.checkpoint`,
+    non-reentrant): its activations are dropped and recomputed in the
+    backward with the forward's dropout draws (module docstring)."""
+    if recompute is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute.recompute()))
+
+
 @contextlib.contextmanager
-def seeded_dropout(generator: torch.Generator, device: torch.device):
+def seeded_dropout(generator: torch.Generator, device: torch.device,
+                   recompute: Optional[RecomputeRNG] = None):
     """Run the body with `device`'s global generator seeded from
     `generator` (advancing it by one draw), then restore the global state."""
     seed = draw_seed(generator)
     with forked_rng(device):
-        seed_global(device, seed)
+        seed_step(device, seed, recompute)
         yield
 
 

@@ -72,10 +72,19 @@ sample its own masks) and combines them by moment matching
 (`core/nig.py:combine_members`). `train/ensemble.py:EnsembleTrainer` is
 this trainer over a stacked K-member parameter set.
 
-Knobs that only pick how XLA executes, or belong to later work, raise
-NotImplementedError away from their defaults: `remat=True`,
-`storage_dtype` other than float32, and a `mesh` or `runtime`. `rng_impl`
-is accepted and has no effect.
+The memory knobs, as the reference's: `storage_dtype` (e.g. "bfloat16")
+casts every floating parameter to that dtype once the optimizer's groups
+are built, so the gradients, the Adam moments, the EMA and the
+accumulated gradient are stored in it too (`train/optim.py` updates such
+leaves as optax does); the layers cast the parameters to the compute
+dtype where flax's `dtype=` does. `remat=True` checkpoints the model's
+whole forward as one block (`torch.utils.checkpoint`, the reference's
+`jax.checkpoint` of `forward`): the backward recomputes it, with the
+forward's dropout draws (`train/rng.py`), on the per-step and the fused
+path alike.
+
+A `mesh` or a `runtime` (the parallel layouts) raises
+NotImplementedError. `rng_impl` is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from tpu_deer_torch.convert import flax_key
 from tpu_deer_torch.core import losses as loss_lib
 from tpu_deer_torch.core import metrics as metrics_lib
 from tpu_deer_torch.core.nig import combine_members, nig_expected_abs_error
@@ -102,9 +112,18 @@ from tpu_deer_torch.models.deer_model import (
     layout_meta,
     uncertainty_outputs,
 )
+from tpu_deer_torch.models.layers import torch_dtype
 from tpu_deer_torch.train.checkpoint import CheckpointManager
 from tpu_deer_torch.train.optim import AdamW
-from tpu_deer_torch.train.rng import draw_seed, forked_rng, seed_global, seeded_dropout
+from tpu_deer_torch.train.rng import (
+    RecomputeRNG,
+    draw_seed,
+    forked_rng,
+    remat,
+    seed_global,
+    seed_step,
+    seeded_dropout,
+)
 from tpu_deer_torch.utils.logging import MetricWriter
 
 
@@ -162,10 +181,8 @@ class TrainingConfig:
     seed: int = 42
 
 
-def _check_supported(config: TrainingConfig, mesh, runtime) -> None:
+def _check_supported(mesh, runtime) -> None:
     unported = {
-        "remat=True": config.remat,
-        f"storage_dtype={config.storage_dtype!r}": config.storage_dtype != "float32",
         "a device mesh": mesh is not None,
         "a distributed runtime": runtime is not None,
     }
@@ -173,7 +190,7 @@ def _check_supported(config: TrainingConfig, mesh, runtime) -> None:
         if given:
             raise NotImplementedError(
                 f"DEERTrainer with {what} is not ported yet (ROADMAP queue 1, "
-                f"items 5 and 13)")
+                f"item 13)")
 
 
 # Dataset arrays a step reads (the teacher targets where a dataset has them).
@@ -241,12 +258,13 @@ class DEERTrainer:
     GRAPH_WARMUP = 3
     optimizer_cls = AdamW
     n_members = 1  # models trained together (train/ensemble.py)
+    _member_dims = 0  # leading member axes of the trained parameters
 
     def __init__(self, model: CompleteDEERModel,
                  config: TrainingConfig = TrainingConfig(),
                  steps_per_epoch: int = 100, mesh=None, runtime=None,
                  device: DeviceLike = None):
-        _check_supported(config, mesh, runtime)
+        _check_supported(mesh, runtime)
         self.device = resolve_device(device)
         self.model = self._place(model)
         self.config = config
@@ -262,9 +280,18 @@ class DEERTrainer:
             if name.startswith(tuple(config.frozen_prefixes)):
                 continue
             groups["encoder" if name.split(".")[0] in ENCODERS else "main"][1].append(name)
+        if config.storage_dtype != "float32":
+            storage = torch_dtype(config.storage_dtype)
+            for p in self._params.values():
+                if p.is_floating_point():
+                    p.data = p.data.to(storage)
         self.optimizer = self.optimizer_cls(
             self._params, groups, self.schedule, config.weight_decay,
-            config.gradient_clip, config.grad_accum_steps, config.ema_decay)
+            config.gradient_clip, config.grad_accum_steps, config.ema_decay,
+            norm_order=sorted(self._params, key=lambda k: flax_key(
+                k, self._params[k].dim() - self._member_dims)))
+        self._recompute = (RecomputeRNG(self.device)
+                           if config.remat and self.device.type == "cuda" else None)
         self.step = 0  # micro-steps
         self.generator = torch.Generator().manual_seed(config.seed)
         self.history: dict[str, list] = {
@@ -395,7 +422,9 @@ class DEERTrainer:
     # -- loss and steps ----------------------------------------------------
     def _loss_fn(self, batch: dict, dataset_weight):
         """(the differentiated loss, the step's scalars)."""
-        out = self.model(batch["audio"], batch["video"], batch["text"])
+        args = (batch["audio"], batch["video"], batch["text"])
+        out = (remat(self.model, *args, recompute=self._recompute)
+               if self.config.remat else self.model(*args))
         return self._loss_terms(out, batch, dataset_weight)
 
     def _loss_terms(self, out: dict, batch: dict, dataset_weight):
@@ -452,7 +481,7 @@ class DEERTrainer:
                     lr_scale: float) -> dict[str, torch.Tensor]:
         """One micro-step; returns the step's scalars on the device."""
         self.model.train()
-        with seeded_dropout(self.generator, self.device):
+        with seeded_dropout(self.generator, self.device, self._recompute):
             loss, aux = self._loss_fn(batch, dataset_weight)
         grads, gate, aux = self._gated_grads(loss, aux)
         self.optimizer.step(grads, gate, lr_scale)
@@ -466,8 +495,8 @@ class DEERTrainer:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        aux["grad_norm"] = grad_norm
+        grad_norm = self.optimizer.global_norm(grads)
+        aux["grad_norm"] = grad_norm.float()
         gate = None
         if self.config.skip_nonfinite_updates:
             ok = torch.isfinite(grad_norm) & torch.isfinite(loss.detach())
@@ -519,7 +548,7 @@ class DEERTrainer:
         self.model.train()
         with forked_rng(self.device):
             for _ in rows:
-                seed_global(self.device, draw_seed(self.generator))
+                seed_step(self.device, draw_seed(self.generator), self._recompute)
                 self._fused_step(run)
                 opt.advance()
                 self.step += 1
@@ -549,6 +578,8 @@ class DEERTrainer:
         graph, table, captured = run.graphs.get(phase, (None, None, None))
         if table is not self.optimizer.table or captured != settings:
             graph = torch.cuda.CUDAGraph()
+            if self._recompute is not None:
+                self._recompute.register(graph)
             t0 = time.perf_counter()
             with torch.cuda.graph(graph):
                 self._fused_body(run, phase)

@@ -200,12 +200,15 @@ def cost_analysis_summary(fn: Callable, *args) -> dict[str, float]:
             "bytes": float(accessed.bytes)}
 
 
-# Peak dense (no sparsity) bf16 tensor-core FLOP/s and HBM bytes/s, by
+# Peak dense (no sparsity) bf16 tensor-core FLOP/s, float32 FLOP/s outside
+# the tensor cores (TF32 off) and HBM bytes/s, by
 # torch.cuda.get_device_name(); for MFU and roofline accounting. Source:
-# NVIDIA's H100 SXM5 datasheet (989 TFLOP/s bf16 dense, 3.35 TB/s HBM3), at
-# the card's full 700 W power limit. Override with TPU_DEER_PEAK_TFLOPS and
+# NVIDIA's H100 SXM5 datasheet (989 TFLOP/s bf16 dense, 67 TFLOP/s float32,
+# 3.35 TB/s HBM3), at the card's full 700 W power limit. Override the bf16
+# peak and the bandwidth with TPU_DEER_PEAK_TFLOPS and
 # TPU_DEER_PEAK_HBM_GBPS.
 PEAK_BF16_FLOPS_BY_NAME = {"NVIDIA H100 80GB HBM3": 989e12}
+PEAK_FP32_FLOPS_BY_NAME = {"NVIDIA H100 80GB HBM3": 67e12}
 PEAK_HBM_BYTES_BY_NAME = {"NVIDIA H100 80GB HBM3": 3.35e12}
 
 
@@ -215,9 +218,13 @@ def _device_name(device: DeviceLike) -> Optional[str]:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else None
 
 
-def peak_flops_per_chip(device: DeviceLike = None) -> Optional[float]:
-    """Peak dense bf16 FLOP/s of `device` (None = the card): None for the
-    CPU or a card not in PEAK_BF16_FLOPS_BY_NAME."""
+def peak_flops_per_chip(device: DeviceLike = None,
+                        dtype: str = "bfloat16") -> Optional[float]:
+    """Peak dense FLOP/s of `device` (None = the card) for `dtype`
+    ("bfloat16", or "float32" with TF32 off): None for the CPU or a card
+    not in the dtype's table."""
+    if dtype == "float32":
+        return PEAK_FP32_FLOPS_BY_NAME.get(_device_name(device))
     env = os.environ.get("TPU_DEER_PEAK_TFLOPS")
     if env:
         return float(env) * 1e12
