@@ -224,6 +224,24 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               at batch 16,384 in float32 and bf16, and the kernel bench's
               first attention shape with K3a-c against their plain twins
               within K3_TOL beside the times.
+ 16. parallel — the parallel layouts on torch.distributed with one card: a
+              world of one process on NCCL (`initialize_runtime` with a
+              localhost rendezvous) and a 1 × 1 ("data", "model") mesh,
+              the flagship at full width (3,918,324 params, dropout 0.1) at
+              batch 4,096: 8 per-step steps of `DEERTrainer(mesh=...,
+              runtime=...)` under 'tp', 'fsdp' and 'replicated' against
+              the unmeshed per-step trainer's 8 from the same init and
+              seed (losses rtol 1e-5, parameters atol 1e-4; whether every
+              bit matches is printed), step p50 with and without the mesh;
+              the CCC of its predictions from statistics all-reduced over
+              "data" against the host's; the fsdp state saved in the
+              sharded format, restored onto its placements bit for bit and
+              into an unmeshed trainer, and served through
+              `PredictionService.from_checkpoint` against the trainer's
+              predict. No kernel of K1-K4 launches on this path (the
+              flagship attends at sequence length 1). A world above one
+              process needs a card a process: NCCL refuses two ranks on one
+              device.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -385,6 +403,10 @@ MEM_BATCH, MEM_STEPS = 4096, 4  # phase 15 (a): the headline recipe's batch
 MEM_WIDE = (8, 8192)  # (a)'s second peak-memory reading: width multiplier, batch
 STORE_BATCH, STORE_STEPS = 16384, 4  # phase 15 (b): the HBM study's batch
 STUDY_BW_FLOATS, STUDY_ITERS = 1 << 26, 16  # phase 15 (d): 256 MiB
+# Phase 16: the flagship at batch 4,096, 8 per-step steps a layout, the
+# trainer tests' tolerances (losses rtol, parameters atol).
+PAR_BATCH, PAR_STEPS, PAR_TOL = 4096, 8, (1e-5, 1e-4)
+PAR_MODES = ("tp", "fsdp", "replicated")
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -3909,6 +3931,214 @@ def phase_memory(torch):
     print(f"memory: phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def par_trainer(torch, model_state, tcfg, mesh=None, runtime=None):
+    """A DEERTrainer (under `mesh` if given) of the flagship from its
+    state_dict `model_state`."""
+    from tpu_deer_torch.models.deer_model import CompleteDEERModel, DEERModelConfig
+    from tpu_deer_torch.train.trainer import DEERTrainer
+
+    model = CompleteDEERModel(DEERModelConfig()).to(DEVICE)
+    model.load_state_dict(model_state)
+    return DEERTrainer(model, tcfg, steps_per_epoch=PAR_STEPS, mesh=mesh,
+                       runtime=runtime, device=DEVICE)
+
+
+def par_steps(torch, model_state, tcfg, rows, mesh=None, runtime=None):
+    """PAR_STEPS per-step steps of `par_trainer`'s trainer, one epoch of
+    `rows`: (trainer, the steps' losses, step p50 in ms)."""
+    from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
+    from tpu_deer_torch.train.trainer import DEERTrainer
+
+    trainer = par_trainer(torch, model_state, tcfg, mesh, runtime)
+    it = BatchIterator(ArrayDataset(rows, "par"), tcfg.batch_size,
+                       shuffle=True, drop_last=True, seed=SEED)
+    times, losses = [], []
+    step = DEERTrainer._train_step
+
+    def timed(self, *args):
+        t_start = time.perf_counter()
+        aux = step(self, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t_start)
+        losses.append(float(aux["loss"]))
+        return aux
+
+    DEERTrainer._train_step = timed
+    try:
+        trainer.train_epoch({"par": it}, 0)
+    finally:
+        DEERTrainer._train_step = step
+    if len(losses) != PAR_STEPS:
+        raise AssertionError(f"{len(losses)} of {PAR_STEPS} steps ran")
+    return trainer, losses, float(np.median(times)) * 1e3
+
+
+def phase_parallel(torch):
+    """Phase 16: the parallel layouts through DEERTrainer on a world of one
+    process on NCCL and a 1 × 1 mesh (see the module docstring)."""
+    import tempfile
+
+    from tpu_deer_torch.core.metrics import ccc_from_stats, ccc_np
+    from tpu_deer_torch.data.pipeline import ArrayDataset
+    from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+    from tpu_deer_torch.models.deer_model import (
+        count_parameters,
+        create_complete_deer_model,
+    )
+    from tpu_deer_torch.parallel import (
+        MeshConfig,
+        RuntimeConfig,
+        global_ccc_stats,
+        initialize_runtime,
+        shard_batch,
+        shutdown_runtime,
+    )
+    from tpu_deer_torch.parallel.mesh import mesh_shape
+    from tpu_deer_torch.server import PredictionService
+    from tpu_deer_torch.train import checkpoint as checkpoint_lib
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+    from tpu_deer_torch.train.trainer import TrainingConfig
+
+    t_phase = time.perf_counter()
+    runtime = initialize_runtime(
+        RuntimeConfig(coordinator_address=f"127.0.0.1:{free_port()}",
+                      num_processes=1, process_id=0),
+        device=None if DEVICE == "cuda" else DEVICE)
+    try:
+        want = "nccl" if DEVICE == "cuda" else "gloo"
+        if runtime.backend != want or runtime.process_count != 1:
+            raise AssertionError(f"runtime on {runtime.backend} with "
+                                 f"{runtime.process_count} processes")
+        mesh = runtime.global_mesh(MeshConfig(data=1, model=1))
+        init = create_complete_deer_model(seed=SEED, device=DEVICE)
+        n_params = count_parameters(init)
+        state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+        splits = make_synthetic_splits(SyntheticConfig(
+            n_train=PAR_BATCH * PAR_STEPS, n_val=PAR_BATCH, n_test=0,
+            seed=SEED + 16))
+        tcfg = TrainingConfig(batch_size=PAR_BATCH, num_epochs=1,
+                              warmup_epochs=0, scheduler="constant",
+                              learning_rate=1e-4, fused_epochs=False,
+                              seed=SEED)
+        plain, ref_losses, plain_p50 = par_steps(torch, state, tcfg,
+                                                 splits["train"])
+        print(f"parallel: runtime {runtime.backend}, world "
+              f"{runtime.process_count}, mesh {mesh_shape(mesh)}; "
+              f"flagship {n_params:,} params, batch {PAR_BATCH}, "
+              f"{PAR_STEPS} per-step steps; unmeshed p50 {plain_p50:.3f} ms")
+        trainers = {}
+        for mode in PAR_MODES:
+            trainer, losses, p50 = par_steps(
+                torch, state, dataclasses.replace(tcfg, param_sharding=mode),
+                splits["train"], mesh, runtime)
+            np.testing.assert_allclose(losses, ref_losses, rtol=PAR_TOL[0],
+                                       err_msg=f"{mode} losses")
+            pairs = [(k, v, plain.params[k]) for k, v in trainer.params.items()]
+            err = max((a - b).abs().max().item() for _, a, b in pairs)
+            if err > PAR_TOL[1]:
+                raise AssertionError(f"{mode}: parameters {err:.3e} from the "
+                                     f"unmeshed trainer's")
+            same = sum(torch.equal(a, b) for _, a, b in pairs)
+            print(f"parallel: {mode}: losses {losses[0]:.6f} → {losses[-1]:.6f} "
+                  f"(unmeshed {ref_losses[0]:.6f} → {ref_losses[-1]:.6f}); "
+                  f"max |Δparam| {err:.3e}, {same} of {len(pairs)} tensors "
+                  f"equal in every bit ({'bits match' if same == len(pairs) else 'bits differ'}); "
+                  f"{len(trainer._layout.split)} split; step p50 {p50:.3f} ms "
+                  f"(unmeshed {plain_p50:.3f})")
+            trainers[mode] = trainer
+        # The unmeshed trainer again, last: the first run of the phase pays
+        # its warm-up, so the p50s compare within the later runs.
+        _, again, again_p50 = par_steps(torch, state, tcfg, splits["train"])
+        if again != ref_losses:
+            raise AssertionError(f"unmeshed rerun losses {again} != {ref_losses}")
+        print(f"parallel: unmeshed again, after the layouts: the same losses, "
+              f"step p50 {again_p50:.3f} ms (first run {plain_p50:.3f})")
+
+        fsdp = trainers["fsdp"]
+        val = ArrayDataset(splits["val"], "val")
+        mu = fsdp.predict(val)["mu"]
+        local = shard_batch({"y": splits["val"]["labels"], "p": mu}, mesh,
+                            torch.device(DEVICE))
+        group = mesh.get_group("data")
+        ccc = float(ccc_from_stats(global_ccc_stats(local["y"], local["p"],
+                                                    group=group)))
+        host_stats = global_ccc_stats(local["y"], local["p"])
+        host = float(ccc_from_stats(host_stats))
+        host_np = ccc_np(splits["val"]["labels"].ravel(), mu.ravel())
+        if ccc != host or abs(ccc - host_np) > 1e-5:
+            raise AssertionError(f"psum'd CCC {ccc} against host {host} / "
+                                 f"{host_np}")
+        print(f"parallel: CCC of {PAR_BATCH} predictions all-reduced over "
+              f"'data' {ccc:.6f} = the host's {host:.6f} (float64 {host_np:.6f})")
+
+        with tempfile.TemporaryDirectory() as root:
+            ckpt = CheckpointManager(root)
+            t0 = time.perf_counter()
+            saved = fsdp.state_dict()
+            t_state = time.perf_counter() - t0
+            snapshot, snap_s = checkpoint_lib._snapshot_chunks, []
+
+            def timed_snapshot(flat):
+                t_snap = time.perf_counter()
+                out = snapshot(flat)
+                snap_s.append(time.perf_counter() - t_snap)
+                return out
+
+            checkpoint_lib._snapshot_chunks = timed_snapshot
+            try:
+                ckpt.save(saved, step=fsdp.step, is_best=True,
+                          metrics={"serving_channel": "calibrated"},
+                          model=fsdp._layout_meta())
+            finally:
+                checkpoint_lib._snapshot_chunks = snapshot
+            save_s = time.perf_counter() - t0
+            meta = ckpt.metadata("best")
+            if meta["format"] != "sharded":
+                raise AssertionError(f"checkpoint format {meta['format']}")
+            back = ckpt.restore(template=saved)
+            for k, v in saved["model"].items():
+                if not torch.equal(back["model"][k].to_local(), v.to_local()):
+                    raise AssertionError(f"restored {k} differs")
+            for group_name in ("mu", "nu"):
+                for k, v in saved["optimizer"][group_name].items():
+                    if not torch.equal(back["optimizer"][group_name][k].to_local(),
+                                       v.to_local()):
+                        raise AssertionError(f"restored {group_name} {k} differs")
+            unmeshed = par_trainer(torch, state, tcfg)
+            unmeshed.load_state_dict(ckpt.restore(map_location=DEVICE))
+            for k, v in fsdp.params.items():
+                if not torch.equal(unmeshed.params[k], v):
+                    raise AssertionError(f"unmeshed restore: {k} differs")
+            svc = PredictionService.from_checkpoint(root, device=DEVICE)
+            n = 8
+            payload = {k: splits["val"][k][:n].tolist()
+                       for k in ("audio", "video", "text")}
+            reply = svc.predict_json(payload)
+            got = np.asarray(reply["mu"], np.float32)
+            check_close("parallel: served μ", torch.from_numpy(got),
+                        torch.from_numpy(mu[:n]), *FEAT_TOL)
+            files = len(os.listdir(os.path.join(root, "best", "arrays")))
+            print(f"parallel: fsdp checkpoint ({files} pieces, sharded "
+                  f"format) saved in {save_s:.2f} s (state_dict {t_state:.2f}, "
+                  f"host copies {sum(snap_s):.2f}, the rest writing and the "
+                  f"best copy), restored onto its "
+                  f"placements and into an unmeshed trainer bit for bit, "
+                  f"served through PredictionService.from_checkpoint "
+                  f"(channel {reply['serving_channel']})")
+    finally:
+        shutdown_runtime(runtime)
+    print(f"parallel: phase 16 took {time.perf_counter() - t_phase:.1f} s; "
+          f"card {card_line()}")
+
+
 def main() -> int:
     import torch
 
@@ -3969,6 +4199,7 @@ def main() -> int:
     phase_corpus(torch, k1, k3, emb)
     phase_zoo(torch, k1, k3)
     phase_memory(torch)
+    phase_parallel(torch)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

@@ -17,6 +17,7 @@ way (their mean err is ~11% of the mean gap), the loss to rtol 1e-4.
 
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -98,12 +99,12 @@ def _inputs(rng, shapes):
 
 def _jax_both(module_fn, params, *xs):
     """A flax module (built by module_fn(dtype)) applied in bf16 and in
-    float32 to the same inputs (bf16 inputs cast as the model casts them)."""
-    out = {}
-    for name, dt in (("bf16", BF16), ("f32", jnp.float32)):
-        out[name] = module_fn(dt).apply(
-            {"params": params}, *(jnp.asarray(x, dt) for x in xs))
-    return out["bf16"], out["f32"]
+    float32 to the same inputs (bf16 inputs cast as the model casts them),
+    on two threads (as the flagship's below)."""
+    with ThreadPoolExecutor(2) as pool:
+        return tuple(pool.map(lambda dt: module_fn(dt).apply(
+            {"params": params}, *(jnp.asarray(x, dt) for x in xs)),
+            (BF16, jnp.float32)))
 
 
 def _to_bf16(*xs):
@@ -219,9 +220,14 @@ def test_flagship_full_width_matches_jax_bf16():
     _, params = _weights(())
     rng = np.random.default_rng(0)
     a, v, t = _inputs(rng, [(256, 84), (256, 256), (256, 768)])
-    ref = {dt: JModel(JConfig(compute_dtype=dt)).apply(
-        {"params": params}, a, v, t, deterministic=True)
-        for dt in ("bfloat16", "float32")}
+    # The two dtypes on two threads: JAX's op-by-op dispatch compiles each
+    # op with the GIL released, and the outputs are those of two calls in
+    # turn, bit for bit.
+    with ThreadPoolExecutor(2) as pool:
+        ref = dict(zip(("bfloat16", "float32"), pool.map(
+            lambda dt: JModel(JConfig(compute_dtype=dt)).apply(
+                {"params": params}, a, v, t, deterministic=True),
+            ("bfloat16", "float32"))))
     with torch.no_grad():
         out = model(*(torch.from_numpy(x) for x in (a, v, t)))
     for key in ("mu_all", "uncertainty_all", "calibrated_uncertainty"):
@@ -310,14 +316,22 @@ def test_train_step_matches_jax_bf16():
     tcfg = dict(learning_rate=1e-3, batch_size=64, num_epochs=1,
                 scheduler="constant", warmup_epochs=0, seed=0)
     ref = {}
+    key = jax.random.PRNGKey(0)
+    steps = {}
     for dt in ("bfloat16", "float32"):
         jm = JModel(JConfig(compute_dtype=dt, **width))
         jt = JTrainer(jm, params, JTrainingConfig(**tcfg), steps_per_epoch=1)
         jt.model = _Deterministic(jm)
-        (loss, _), grads = jax.jit(jax.value_and_grad(jt._loss_fn, has_aux=True))(
-            params, batch, jax.random.PRNGKey(0), 1.0)
-        ref[dt] = float(loss), flax_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, grads))
+        steps[dt] = jax.jit(jax.value_and_grad(jt._loss_fn, has_aux=True))
+    # Both programs traced here and compiled on threads (XLA's compile
+    # releases the GIL); each then runs as jax.jit would run it.
+    with ThreadPoolExecutor(2) as pool:
+        compiled = {dt: pool.submit(fn.lower(params, batch, key, 1.0).compile)
+                    for dt, fn in steps.items()}
+        for dt, fut in compiled.items():
+            (loss, _), grads = fut.result()(params, batch, key, 1.0)
+            ref[dt] = float(loss), flax_to_state_dict(
+                jax.tree_util.tree_map(np.asarray, grads))
     model = CompleteDEERModel(DEERModelConfig(compute_dtype="bfloat16", **width))
     model.load_state_dict(state)
     for m in model.modules():

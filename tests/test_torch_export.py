@@ -160,10 +160,12 @@ def test_manifest_matches_jax(artifacts, variant):
     prefixes = {k.split("/")[0] for k in keys if "/" in k}
     assert prefixes == ({"q", "scale"} if tman["quantized"] else set()) | (
         {"ood"} if "ood" in tman else set())
-    # The programs carry no weights: every tensor is an input.
-    for name in tman["artifacts"].values():
-        ep = torch.export.load(os.path.join(tdir, name))
-        assert not ep.state_dict and not ep.constants, name
+    # The programs carry no weights: every tensor is an input. (The
+    # programs as torch.export.load gave them to the module's engine.)
+    loaded = _loaded(*artifacts[variant][:2])[0].exported
+    assert sorted(loaded) == list(BUCKETS)
+    for b, ep in loaded.items():
+        assert not ep.state_dict and not ep.constants, b
         assert ep.example_inputs is None
 
 
@@ -225,7 +227,12 @@ def test_from_exported_predict_json_matches_jax(artifacts, variant):
     payload = {"audio": a.tolist(), "video": v.tolist(), "text": t.tolist()}
     svc = tserver.PredictionService.from_exported(tdir, device="cpu")
     got = svc.predict_json(payload)
-    ref = jserver.PredictionService.from_exported(jdir).predict_json(payload)
+    # The reference's from_exported is its load_exported and this: the
+    # module's JAX engine over the same artifact.
+    jengine = _loaded(tdir, jdir)[1]
+    c = jengine.manifest["config"]
+    ref = jserver.PredictionService(
+        jengine, (c["audio_dim"], c["video_dim"], c["text_dim"])).predict_json(payload)
     assert got["serving_channel"] == ref["serving_channel"] == "calibrated"
     _assert_same(got, ref)
     with pytest.raises(ValueError, match="checkpoint"):
@@ -281,7 +288,7 @@ def test_server_main_serves_an_export_without_model_code(artifacts):
         a, v, t = _feats(17, 2)
         got = call("/predict", {"audio": a.tolist(), "video": v.tolist(),
                                 "text": t.tolist()})
-        ref = load_exported(tdir, device="cpu").predict(a, v, t)
+        ref = _loaded(*artifacts["float_ood"][:2])[0].predict(a, v, t)
         _assert_same({k: got[k] for k in ref}, ref, rtol=1e-6, atol=0)
         assert call("/healthz")["requests_served"] == 1
 

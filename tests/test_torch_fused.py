@@ -21,6 +21,7 @@ graph; `tests/test_torch_graph_cuda.py` holds it against eager steps there.
 """
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -110,18 +111,25 @@ def _train(trainer, run, wrap=ArrayDataset, **kw):
                          {n: wrap(va, n) for n, (_, va) in data.items()}, **kw)
 
 
+def _jax_run(run):
+    jm = JModel(JModelConfig(**WIDTH))
+    jt = JTrainer(jm, _init(), JConfig(**RUNS[run]), steps_per_epoch=_steps(run))
+    jt.model = _Deterministic(jm)
+    return jt, _train(jt, run, JDataset)
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
-    """Each run's two fused epochs on both sides, trained once."""
-    out = {}
-    for run in RUNS:
-        jm = JModel(JModelConfig(**WIDTH))
-        jt = JTrainer(jm, _init(), JConfig(**RUNS[run]),
-                      steps_per_epoch=_steps(run))
-        jt.model = _Deterministic(jm)
-        tt = _port_trainer(run, dropout=False)
-        out[run] = ((jt, _train(jt, run, JDataset)), (tt, _train(tt, run)))
-    return out
+    """Each run's two fused epochs on both sides, trained once: the
+    reference's runs on threads of their own (XLA compiles and runs with
+    the GIL released), the port's here."""
+    with ThreadPoolExecutor(len(RUNS)) as pool:
+        jax_side = {run: pool.submit(_jax_run, run) for run in RUNS}
+        out = {}
+        for run in RUNS:
+            tt = _port_trainer(run, dropout=False)
+            out[run] = (tt, _train(tt, run))
+        return {run: (jax_side[run].result(), out[run]) for run in RUNS}
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))

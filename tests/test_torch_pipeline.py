@@ -13,6 +13,7 @@ best val CCC, evaluation.json and conformal.json within 1e-4 (float32
 training in another summation order, 32 steps; see NARROW for the lr).
 """
 
+import functools
 import json
 import os
 
@@ -32,6 +33,7 @@ from tpu_deer.eval import statistics as jstats
 from tpu_deer.models.deer_model import CompleteDEERModel as JModel
 from tpu_deer.models.deer_model import DEERModelConfig as JModelConfig
 from tpu_deer.utils import config as jconfig
+from tpu_deer.utils import logging as jlogging
 from tpu_deer_torch import cli as tcli
 from tpu_deer_torch.convert import state_dict_to_flax
 from tpu_deer_torch.core import metrics as tmetrics
@@ -230,8 +232,13 @@ def _pipelines(root):
     return out
 
 
-def test_quick_pipeline_matches_jax(tmp_path_factory):
+def test_quick_pipeline_matches_jax(tmp_path_factory, monkeypatch):
     root = str(tmp_path_factory.mktemp("pipelines"))
+    # The reference's metric writer without its TensorBoard events (whose
+    # writer imports TensorFlow, ~10 s): its jsonl, which the port writes,
+    # and everything compared below are as before.
+    monkeypatch.setattr(jlogging, "MetricWriter", functools.partial(
+        jlogging.MetricWriter, use_tensorboard=False))
     runs = _pipelines(root)
     (jp, jtrain), (tp, ttrain) = runs["jax"], runs["port"]
     np.testing.assert_allclose(ttrain["best_val_ccc"], jtrain["best_val_ccc"],

@@ -20,6 +20,7 @@ validation metrics rtol 1e-4, atol 1e-5 (computed from those predictions).
 import functools
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -43,6 +44,7 @@ from tpu_deer_torch.models.deer_model import (
 )
 from tpu_deer_torch.train import checkpoint as tcheckpoint
 from tpu_deer_torch.train.checkpoint import CheckpointManager
+from tpu_deer_torch.train.ensemble import EnsembleTrainer
 from tpu_deer_torch.train.trainer import (
     DEERTrainer,
     TrainingConfig,
@@ -107,35 +109,42 @@ def _init():
     return JModel(JModelConfig(**WIDTH)), state_dict_to_flax(model.state_dict())
 
 
-def _run(run, tmp):
-    """(reference trainer, results, ckpt dir), (port trainer, results, dir)."""
+def _side(run, side, root):
+    """(trainer, results, ckpt dir `root`) of run `run` on side "jax" (the
+    reference) or "port"."""
     jm, params = _init()
     data = _datasets(run)
     steps = sum(len(tr["labels"]) // RUNS[run]["batch_size"] for tr, _ in data.values())
-    out = []
-    for side in ("jax", "port"):
-        root = str(tmp.mktemp(f"trainer_{run}_{side}"))
-        if side == "jax":
-            trainer = JTrainer(jm, params, JConfig(**RUNS[run]), steps_per_epoch=steps)
-            trainer.model = _Deterministic(jm)
-            ckpt, wrap = JCheckpoints(root), JDataset
-        else:
-            model = CompleteDEERModel(DEERModelConfig(**WIDTH))
-            model.load_state_dict(flax_to_state_dict(params))
-            trainer = DEERTrainer(_no_dropout(model), TrainingConfig(**RUNS[run]),
-                                  steps_per_epoch=steps, device="cpu")
-            ckpt, wrap = CheckpointManager(root), ArrayDataset
-        results = trainer.train(
-            {n: wrap(tr, n) for n, (tr, _) in data.items()},
-            {n: wrap(va, n) for n, (_, va) in data.items()}, checkpoints=ckpt)
-        out.append((trainer, results, root))
-    return out
+    if side == "jax":
+        trainer = JTrainer(jm, params, JConfig(**RUNS[run]), steps_per_epoch=steps)
+        trainer.model = _Deterministic(jm)
+        ckpt, wrap = JCheckpoints(root), JDataset
+    else:
+        model = CompleteDEERModel(DEERModelConfig(**WIDTH))
+        model.load_state_dict(flax_to_state_dict(params))
+        trainer = DEERTrainer(_no_dropout(model), TrainingConfig(**RUNS[run]),
+                              steps_per_epoch=steps, device="cpu")
+        ckpt, wrap = CheckpointManager(root), ArrayDataset
+    results = trainer.train(
+        {n: wrap(tr, n) for n, (tr, _) in data.items()},
+        {n: wrap(va, n) for n, (_, va) in data.items()}, checkpoints=ckpt)
+    return trainer, results, root
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both runs on both sides, trained once for the module."""
-    return {run: _run(run, tmp_path_factory) for run in RUNS}
+    """Both runs on both sides, trained once for the module: {run: [(ref
+    trainer, results, ckpt dir), (port trainer, results, dir)]}. The
+    reference's runs go on threads of their own (XLA compiles and runs with
+    the GIL released), the port's here."""
+    _init()
+    roots = {(run, side): str(tmp_path_factory.mktemp(f"trainer_{run}_{side}"))
+             for run in RUNS for side in ("jax", "port")}
+    with ThreadPoolExecutor(len(RUNS)) as pool:
+        jax_side = {run: pool.submit(_side, run, "jax", roots[run, "jax"])
+                    for run in RUNS}
+        port = {run: _side(run, "port", roots[run, "port"]) for run in RUNS}
+        return {run: [jax_side[run].result(), port[run]] for run in RUNS}
 
 
 def _assert_metrics_match(got: dict, ref: dict, label: str):
@@ -389,8 +398,11 @@ def test_unported_knobs_raise(tmp_path):
             ArrayDataset(tr), 16, shuffle=True, drop_last=True)}, 0)
         assert np.isfinite(metrics["loss"]) and knob.step == 6
     model = CompleteDEERModel(DEERModelConfig(**WIDTH))
-    with pytest.raises(NotImplementedError):
-        DEERTrainer(model, TrainingConfig(), mesh=object(), device="cpu")
+    # DEERTrainer under a mesh is ported (tests/test_torch_parallel_*.py);
+    # the ensemble over a mesh is not.
+    with pytest.raises(NotImplementedError, match="11b"):
+        EnsembleTrainer(model, {"w": torch.zeros(2, 1)}, TrainingConfig(),
+                        mesh=object(), device="cpu")
     trainer = DEERTrainer(model, TrainingConfig(rng_impl="threefry2x32"),
                           device="cpu")
     # MC dropout and teacher targets are ported: a bad sample count
@@ -405,9 +417,11 @@ def test_unported_knobs_raise(tmp_path):
     metrics = trainer.train_epoch({"synthetic": BatchIterator(
         distill, 16, shuffle=True, drop_last=True)}, 0)
     assert metrics["distill_mu"] > 0 and metrics["distill_unc"] > 0
-    for foreign in ("state.msgpack", "manifest.json"):  # JAX's formats
+    # JAX's formats are read (tests/test_torch_checkpoint_formats.py); an
+    # empty file of either raises.
+    for foreign in ("state.msgpack", "manifest.json"):
         root = str(tmp_path / foreign)
         os.makedirs(os.path.join(root, "step_00000001"))
         open(os.path.join(root, "step_00000001", foreign), "wb").close()
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             CheckpointManager(root).restore()

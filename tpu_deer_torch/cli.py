@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from tpu_deer_torch.device import DeviceLike, resolve_device
+from tpu_deer_torch.parallel.runtime import initialize_runtime
 
 logger = logging.getLogger("tpu_deer_torch.cli")
 
@@ -136,9 +137,23 @@ class MultimodalDEERPipeline:
         self.seed = int(self.config["training"].get("seed", 42))
         self.ensemble_members = int(
             self.config["training"].get("ensemble_members", 1))
+        self.mesh = self._setup_mesh()
         self.model = self.params = None
         self.trainer = None
         self.datasets = None
+
+    def _setup_mesh(self):
+        """A mesh from `hardware.mesh` ({"data", "model"}) where the world
+        (`parallel/runtime.py:initialize_runtime`) has more than one
+        process, else None, as the reference's over its devices."""
+        from tpu_deer_torch.parallel.mesh import MeshConfig, create_mesh, world_size
+
+        if world_size() <= 1:
+            return None
+        mesh_cfg = self.config["hardware"].get("mesh", {})
+        return create_mesh(MeshConfig(data=int(mesh_cfg.get("data", -1)),
+                                      model=int(mesh_cfg.get("model", 1))),
+                           self.device.type)
 
     def path(self, *parts) -> str:
         return os.path.join(self.experiment_dir, *parts)
@@ -252,11 +267,12 @@ class MultimodalDEERPipeline:
 
             self.trainer = EnsembleTrainer(
                 self.model, self.params, self.training_config,
-                steps_per_epoch=max(1, steps), device=self.device)
+                steps_per_epoch=max(1, steps), mesh=self.mesh,
+                device=self.device)
         else:
             self.trainer = DEERTrainer(self.model, self.training_config,
                                        steps_per_epoch=max(1, steps),
-                                       device=self.device)
+                                       mesh=self.mesh, device=self.device)
         return self.trainer
 
     # -- stages ----------------------------------------------------------
@@ -701,7 +717,9 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
-    device = resolve_device(PLATFORMS[args.platform])
+    # Joins a process group only where asked (TPU_DEER_MULTIPROCESS=1, or
+    # torchrun's environment with it): each process then takes its card.
+    device = initialize_runtime(device=PLATFORMS[args.platform]).device
     logger.info("device: %s", device)
 
     if args.mode == "test":

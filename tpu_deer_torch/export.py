@@ -277,9 +277,12 @@ class ExportedEngine:
         self.buckets = self.manifest["buckets"]
         # Channel deployment should read, as recorded at export time.
         self.serving_channel = self.manifest.get("serving_channel", "eabs")
+        # bucket → the ExportedProgram as loaded, and its module.
+        self.exported = {}
         self._programs = {}
         for b, name in self.manifest["artifacts"].items():
             ep = torch.export.load(os.path.join(output_dir, name))
+            self.exported[int(b)] = ep
             if self.device.type != "cpu":
                 ep = move_to_device_pass(ep, self.device)
             self._programs[int(b)] = ep.module()

@@ -114,6 +114,10 @@ class EnsembleTrainer(DEERTrainer):
                  config: TrainingConfig = TrainingConfig(),
                  steps_per_epoch: int = 100, mesh=None, runtime=None,
                  device: DeviceLike = None):
+        if mesh is not None or runtime is not None:
+            raise NotImplementedError(
+                "EnsembleTrainer under a device mesh (the members over "
+                "'model') is not ported yet (ROADMAP queue 1, entry 11b)")
         if not stacked_params:
             raise ValueError("empty parameter set")
         sizes = {v.shape[0] if v.dim() else None for v in stacked_params.values()}

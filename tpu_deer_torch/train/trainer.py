@@ -83,8 +83,30 @@ whole forward as one block (`torch.utils.checkpoint`, the reference's
 forward's dropout draws (`train/rng.py`), on the per-step and the fused
 path alike.
 
-A `mesh` or a `runtime` (the parallel layouts) raises
-NotImplementedError. `rng_impl` is accepted and has no effect.
+Under a device mesh (`mesh=`, a `parallel/mesh.py:create_mesh` mesh, and
+`runtime=` across processes) a step is the reference's step over the
+global batch, as replicated data parallelism: every process holds the
+whole parameters and optimizer state; it runs the forward on its rows of
+the batch's "data" shard, with the dropout masks of those rows in the
+global batch's draw (`MeshLayout.dropout`); the model's outputs are
+all-gathered over "data" and every process computes the same loss on the
+global batch (the binned ECE, the calibration, cross-dimension and
+diversity terms are batch-level, not means of per-row terms); the
+gradients of each process's rows are summed over "data" in one
+all-reduce; and every process runs the same clip and update
+(`train/optim.py`, EMA, accumulation and `storage_dtype` included).
+`config.param_sharding` ('tp', 'fsdp' or 'replicated';
+`parallel/mesh.py:MeshLayout`) decides only the pieces `state_dict()`
+gives as DTensors, so a checkpoint is written in the sharded format
+(`train/checkpoint.py`) with the reference's layout; the step saves no
+memory or work by it (ROADMAP, "Deliberate differences"). `batch_size`
+must be divisible by the "data" axis. The datasets are global: every
+process holds them and takes its rows of each batch, so an iterator
+sliced per process (`BatchIterator(process_count > 1)`) raises. As in the
+reference, a mesh takes the per-step path with the data on the host (no
+staging, no fused epochs and so no CUDA graph), and validation and
+`predict` run the full batch on every process. `rng_impl` is accepted and
+has no effect.
 """
 
 from __future__ import annotations
@@ -113,6 +135,7 @@ from tpu_deer_torch.models.deer_model import (
     uncertainty_outputs,
 )
 from tpu_deer_torch.models.layers import torch_dtype
+from tpu_deer_torch.parallel.mesh import MeshLayout, mesh_shape
 from tpu_deer_torch.train.checkpoint import CheckpointManager
 from tpu_deer_torch.train.optim import AdamW
 from tpu_deer_torch.train.rng import (
@@ -173,24 +196,14 @@ class TrainingConfig:
     rng_impl: str = "rbg"  # accepted, no effect (see train/rng.py)
     remat: bool = False
     storage_dtype: str = "float32"
-    param_sharding: str = "tp"  # only read under a mesh, which is not ported
+    # The parameters' layout under a mesh: 'tp', 'fsdp' or 'replicated'
+    # (parallel/mesh.py).
+    param_sharding: str = "tp"
     grad_accum_steps: int = 1
     ema_decay: float = 0.0
     ema_eval: bool = False
     fused_epochs: Optional[bool] = None
     seed: int = 42
-
-
-def _check_supported(mesh, runtime) -> None:
-    unported = {
-        "a device mesh": mesh is not None,
-        "a distributed runtime": runtime is not None,
-    }
-    for what, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"DEERTrainer with {what} is not ported yet (ROADMAP queue 1, "
-                f"item 13)")
 
 
 # Dataset arrays a step reads (the teacher targets where a dataset has them).
@@ -243,6 +256,21 @@ class _FusedRun:
     stream: Optional[torch.cuda.Stream] = None  # the warm-up's side stream
 
 
+def _whole_tensors(state: dict) -> dict:
+    """A training state with every DTensor (a sharded state of any layout)
+    made whole again."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(v):
+        if isinstance(v, DTensor):
+            return v.full_tensor()
+        if isinstance(v, dict):
+            return {k: whole(t) for k, t in v.items()}
+        return v
+
+    return {k: whole(v) for k, v in state.items()}
+
+
 class DEERTrainer:
     """Trains `model` (a CompleteDEERModel with its weights, moved to
     `device`: None = the CUDA card) with `config`. `steps_per_epoch` sizes
@@ -264,8 +292,17 @@ class DEERTrainer:
                  config: TrainingConfig = TrainingConfig(),
                  steps_per_epoch: int = 100, mesh=None, runtime=None,
                  device: DeviceLike = None):
-        _check_supported(mesh, runtime)
+        if device is None and runtime is not None:
+            device = runtime.device
         self.device = resolve_device(device)
+        if mesh is not None:
+            data_size = mesh_shape(mesh)["data"]
+            if config.batch_size % data_size != 0:
+                raise ValueError(
+                    f"batch_size {config.batch_size} must be divisible by the "
+                    f"mesh 'data' axis ({data_size}) for even sharding")
+        self.mesh = mesh
+        self.runtime = runtime
         self.model = self._place(model)
         self.config = config
         self.steps_per_epoch = max(1, steps_per_epoch)
@@ -285,6 +322,8 @@ class DEERTrainer:
             for p in self._params.values():
                 if p.is_floating_point():
                     p.data = p.data.to(storage)
+        self._layout = (MeshLayout(mesh, config.param_sharding, self._params)
+                        if mesh is not None else None)
         self.optimizer = self.optimizer_cls(
             self._params, groups, self.schedule, config.weight_decay,
             config.gradient_clip, config.grad_accum_steps, config.ema_decay,
@@ -325,16 +364,37 @@ class DEERTrainer:
     # -- state -------------------------------------------------------------
     def state_dict(self) -> dict:
         """The full training state: what a checkpoint holds (parameters,
-        optimizer state with the EMA, step, dropout generator)."""
+        optimizer state with the EMA, step, dropout generator). Under a mesh
+        the trained parameters and the optimizer's tensors are DTensors
+        placed by the layout."""
+        state = self._local_state()
+        if self._layout is None:
+            return state
+        layout = self._layout
+        state["model"] = {k: (layout.dtensor(k, v) if k in layout.specs else v)
+                          for k, v in state["model"].items()}
+        state["optimizer"] = {k: ({n: layout.dtensor(n, t) for n, t in v.items()}
+                                  if isinstance(v, dict) else v)
+                              for k, v in state["optimizer"].items()}
+        return state
+
+    def _local_state(self) -> dict:
         return {"model": self._model_state(),
                 "optimizer": self.optimizer.state_dict(), "step": self.step,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load a state: this trainer's, or one from a checkpoint (of any
+        layout, with or without a mesh; a state converted from the
+        reference's has no dropout generator, and the trainer keeps its
+        own)."""
+        if self._layout is not None:
+            state = _whole_tensors(state)
         self._load_model_state(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
-        self.generator.set_state(state["generator"])
+        if "generator" in state:
+            self.generator.set_state(state["generator"].cpu())
 
     def _model_state(self) -> dict:
         return self.model.state_dict()
@@ -343,7 +403,7 @@ class DEERTrainer:
         self.model.load_state_dict(state)
 
     def _copy_state(self) -> dict:
-        return copy.deepcopy(self.state_dict())
+        return copy.deepcopy(self._local_state())
 
     # -- device-resident data ------------------------------------------------
     # The caches below are keyed by the datasets' ids (a dataset is not
@@ -362,6 +422,8 @@ class DEERTrainer:
             weakref.finalize(d, drop)
 
     def _stage(self, dataset: ArrayDataset) -> Optional[dict]:
+        if self.mesh is not None:  # host batches under a mesh, as the reference
+            return None
         key = id(dataset)
         if key not in self._staged:
             arrays = {k: v for k, v in dataset.arrays.items() if k in BATCH_KEYS}
@@ -421,11 +483,31 @@ class DEERTrainer:
 
     # -- loss and steps ----------------------------------------------------
     def _loss_fn(self, batch: dict, dataset_weight):
-        """(the differentiated loss, the step's scalars)."""
+        """(the differentiated loss, the step's scalars). Under a mesh
+        `batch` is this process's rows and the loss is the global batch's."""
         args = (batch["audio"], batch["video"], batch["text"])
-        out = (remat(self.model, *args, recompute=self._recompute)
-               if self.config.remat else self.model(*args))
+        forward = self.model
+        if self._layout is not None:
+            def forward(*args):
+                with self._layout.dropout(self.model):
+                    return self.model(*args)
+        out = (remat(forward, *args, recompute=self._recompute)
+               if self.config.remat else forward(*args))
+        if self._layout is not None:
+            out, batch = self._global_batch(out, batch)
         return self._loss_terms(out, batch, dataset_weight)
+
+    def _global_batch(self, out: dict, batch: dict) -> tuple[dict, dict]:
+        """The outputs the loss reads and the batch's targets, all-gathered
+        over the mesh's "data" axis (differentiably)."""
+        gather = self._layout.gather_rows
+        names = self.model.config.dim_names
+        out_g = {f"{n}_params": type(out[f"{n}_params"])(
+            *map(gather, out[f"{n}_params"])) for n in names}
+        for k in ("mu_all", "uncertainty_all", "calibrated_uncertainty"):
+            out_g[k] = gather(out[k])
+        return out_g, {k: gather(v) for k, v in batch.items()
+                       if k in ("labels", "teacher_mu", "teacher_unc")}
 
     def _loss_terms(self, out: dict, batch: dict, dataset_weight):
         """The loss of the model's outputs `out` on `batch`, and the step's
@@ -489,12 +571,15 @@ class DEERTrainer:
         return aux
 
     def _gated_grads(self, loss, aux):
-        """The step's gradients, the update gate and the step's scalars, the
+        """The step's gradients (under a mesh: summed over "data"), the
+        update gate and the step's scalars, the
         non-finite containment applied; nothing waits for the card."""
         params = list(self._params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        if self._layout is not None:
+            grads = self._layout.reduce_grads(grads)
         grad_norm = self.optimizer.global_norm(grads)
         aux["grad_norm"] = grad_norm.float()
         gate = None
@@ -681,11 +766,20 @@ class DEERTrainer:
         lr_scale = self._plateau_scale * self._spike_scale
         combined = (self._stage_combined({n: it.dataset for n, it in
                                           train_iterators.items()})
-                    if self.config.fused_epochs else None)
+                    if self.config.fused_epochs and self.mesh is None else None)
         if combined is not None:
             return self._fused_epoch(train_iterators, epoch, combined, lr_scale)
+        if self._layout is not None and any(
+                getattr(it, "process_count", 1) > 1
+                for it in train_iterators.values()):
+            raise ValueError(
+                "under a mesh the trainer takes global batches and each process "
+                "keeps its rows: pass iterators over the whole dataset, not "
+                "BatchIterator(..., process_index, process_count) slices")
         auxs = []
         for name, idx, _ in self._multi_dataset_iterator(train_iterators, epoch):
+            if self._layout is not None:  # this process's rows
+                idx = idx[self._layout.rows(len(idx))]
             batch = self._batch_from_indices(train_iterators[name].dataset, idx)
             auxs.append(self._train_step(
                 batch, float(self.config.dataset_weights.get(name.lower(), 1.0)),
@@ -753,7 +847,9 @@ class DEERTrainer:
         best_ccc = -np.inf
         best_serving_channel = "eabs"
         if resume and checkpoints is not None and checkpoints.latest_step() is not None:
-            self.load_state_dict(checkpoints.restore(map_location=self.device))
+            self.load_state_dict(checkpoints.restore(
+                map_location=self.device,
+                template=self.state_dict() if self._layout is not None else None))
             meta = checkpoints.metadata()["metrics"]
             start_epoch = int(meta.get("epoch", 0)) + 1
             best_ccc = float(meta.get("best_ccc", -np.inf))
