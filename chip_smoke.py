@@ -242,6 +242,25 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               flagship attends at sequence length 1). A world above one
               process needs a card a process: NCCL refuses two ranks on one
               device.
+ 17. seq    — sequence, pipeline and expert parallelism: (a) ring
+              attention's hops (`parallel/sequence.py:fold_attention`, K3a
+              a forward hop, K3b and K3c a backward hop) folded over 4 key
+              blocks of 2,048 at B 4, H 8, T 8,192, D 64, with key lengths
+              off the block edges and one all-masked element: K3a, K3b and
+              K3c each launched 4 times (the counts zeroed just before),
+              forward and gradients against `flash_attention` over the
+              whole T and against the plain twin (an element at a time)
+              within K3_TOL, the ring's forward + backward time beside the
+              whole-T call's; (b) a world of one process on NCCL:
+              `ring_attention_sharded` at the same shape (K3a-c once each,
+              equal to `flash_attention` in every bit), `pipeline_sharded`
+              at one stage, the flagship with fusion_type "moe" made
+              expert-parallel over an axis of 1 (equal to the unmeshed
+              model in every bit), EnsembleTrainer K = 4 at batch 4,096
+              under a 1 × 1 mesh with param_sharding "ensemble": 8 steps
+              equal to the unmeshed trainer's in every bit, step p50 both
+              ways, its sharded checkpoint restored bit for bit; and
+              `parallel/dryrun.py:dryrun_multichip(1)`, its line printed.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -407,6 +426,12 @@ STUDY_BW_FLOATS, STUDY_ITERS = 1 << 26, 16  # phase 15 (d): 256 MiB
 # trainer tests' tolerances (losses rtol, parameters atol).
 PAR_BATCH, PAR_STEPS, PAR_TOL = 4096, 8, (1e-5, 1e-4)
 PAR_MODES = ("tp", "fsdp", "replicated")
+# Phase 17: the ring's hops at B 4, H 8, T 8,192, D 64 in 4 key blocks of
+# 2,048, key lengths off the block edges and one all-masked element; the
+# ensemble (K = 4) at batch 4,096, 8 per-step steps under a 1 × 1 mesh.
+SEQ_SHAPE, SEQ_BLOCKS = (4, 8, 8192, 64), 4
+SEQ_LENGTHS = (8192, 6001, 2049, 0)
+SEQ_ENS_MEMBERS = 4
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -3954,11 +3979,18 @@ def par_trainer(torch, model_state, tcfg, mesh=None, runtime=None):
 def par_steps(torch, model_state, tcfg, rows, mesh=None, runtime=None):
     """PAR_STEPS per-step steps of `par_trainer`'s trainer, one epoch of
     `rows`: (trainer, the steps' losses, step p50 in ms)."""
+    return timed_epoch(torch, par_trainer(torch, model_state, tcfg, mesh,
+                                          runtime), rows)
+
+
+def timed_epoch(torch, trainer, rows):
+    """One per-step epoch of `trainer` (PAR_STEPS steps) over `rows`, each
+    step timed to a synchronize: (trainer, the steps' losses, step p50 in
+    ms)."""
     from tpu_deer_torch.data.pipeline import ArrayDataset, BatchIterator
     from tpu_deer_torch.train.trainer import DEERTrainer
 
-    trainer = par_trainer(torch, model_state, tcfg, mesh, runtime)
-    it = BatchIterator(ArrayDataset(rows, "par"), tcfg.batch_size,
+    it = BatchIterator(ArrayDataset(rows, "par"), trainer.config.batch_size,
                        shuffle=True, drop_last=True, seed=SEED)
     times, losses = [], []
     step = DEERTrainer._train_step
@@ -4139,6 +4171,232 @@ def phase_parallel(torch):
           f"card {card_line()}")
 
 
+def ens_steps(torch, stack, tcfg, rows, mesh=None, runtime=None):
+    """`timed_epoch` of an EnsembleTrainer of the flagship over the stacked
+    state_dict `stack` (dropout 0.1)."""
+    from tpu_deer_torch.models.deer_model import DEERModelConfig, structure
+    from tpu_deer_torch.train.ensemble import EnsembleTrainer
+
+    return timed_epoch(torch, EnsembleTrainer(
+        structure(DEERModelConfig()), stack, tcfg, steps_per_epoch=PAR_STEPS,
+        mesh=mesh, runtime=runtime, device=DEVICE), rows)
+
+
+def seq_case(torch):
+    """(q, k, v, mask, dO) at SEQ_SHAPE on the card, key lengths
+    SEQ_LENGTHS (off the 2,048-key block edges; the last element all
+    masked)."""
+    b, h, t, d = SEQ_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    q, k, v, do = (torch.randn(SEQ_SHAPE, generator=g, device=DEVICE)
+                   for _ in range(4))
+    mask = (torch.arange(t, device=DEVICE)[None, :]
+            < torch.tensor(SEQ_LENGTHS, device=DEVICE)[:, None]).float()
+    return q, k, v, mask, do
+
+
+def attention_grads(torch, fn, q, k, v, mask, do):
+    """(O, dq, dk, dv) of fn(q, k, v, mask) with cotangent dO."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves, mask)
+    grads = torch.autograd.grad(out, leaves, do)
+    return (out.detach(), *grads)
+
+
+def phase_seq_pipe_expert(torch, k3):
+    """Phase 17: ring attention's hops through K3a-c on one card, then a
+    world of one process on NCCL: ring attention, GPipe and the
+    expert-parallel MoE flagship through their meshes, the ensemble under
+    a 1 × 1 mesh, and the dry run (see the module docstring)."""
+    import tempfile
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
+    from tpu_deer_torch.models.deer_model import (
+        DEERModelConfig,
+        count_parameters,
+        create_complete_deer_model,
+    )
+    from tpu_deer_torch.parallel import (
+        MeshConfig,
+        RuntimeConfig,
+        initialize_runtime,
+        shutdown_runtime,
+    )
+    from tpu_deer_torch.parallel.dryrun import dryrun_multichip
+    from tpu_deer_torch.parallel.mesh import expert_parallel
+    from tpu_deer_torch.parallel.pipeline import pipeline_sharded
+    from tpu_deer_torch.parallel.sequence import fold_attention, ring_attention_sharded
+    from tpu_deer_torch.train.checkpoint import CheckpointManager
+    from tpu_deer_torch.train.ensemble import create_deer_ensemble
+    from tpu_deer_torch.train.trainer import TrainingConfig
+
+    t_phase = time.perf_counter()
+    counters = (k3.flash_attention_fwd, k3.flash_attention_bwd_dq,
+                k3.flash_attention_bwd_dkv)
+
+    def counts():
+        return [c.launches for c in counters]
+
+    # (a) the ring's hops folded over 4 key blocks on one card.
+    case = seq_case(torch)
+    q, k, v, mask, do = case
+    n = SEQ_BLOCKS
+    folded = lambda *a: fold_attention(*a, n_blocks=n)
+    for c in counters:
+        c.launches = 0
+    ring = attention_grads(torch, folded, *case)
+    torch.cuda.synchronize()
+    ring_launches = counts()
+    if ring_launches != [n] * 3:
+        raise AssertionError(f"the folded ring launched K3a/K3b/K3c "
+                             f"{ring_launches} times, not {n} each")
+    whole = attention_grads(torch, k3.flash_attention, *case)
+    names = ("O", "dq", "dk", "dv")
+    vs_whole = [check_close(f"ring vs whole-T {nm}", a, b, *K3_TOL)
+                for nm, a, b in zip(names, ring, whole)]
+    vs_plain = [0.0] * 4
+    for i in range(q.shape[0]):  # the plain twin's [T, T] scores, an element at a time
+        plain = attention_grads(torch, k3.flash_attention_plain,
+                                *(x[i:i + 1] for x in case))
+        for j, (a, b) in enumerate(zip(ring, plain)):
+            vs_plain[j] = max(vs_plain[j], check_close(
+                f"ring vs plain {names[j]} (element {i})", a[i:i + 1], b, *K3_TOL))
+        del plain
+    dead = SEQ_LENGTHS.index(0)
+    check_close("ring all-masked O", ring[0][dead],
+                v[dead].mean(1, keepdim=True).expand_as(v[dead]), *K3_TOL)
+    if ring[1][dead].any() or ring[2][dead].any():
+        raise AssertionError("ring: dq, dk of the all-masked element not 0")
+    check_close("ring all-masked dv", ring[3][dead],
+                (do[dead].sum(1, keepdim=True) / q.shape[2]).expand_as(v[dead]),
+                *K3_TOL)
+    ring_ms = time_ms(lambda: attention_grads(torch, folded, *case), reps=5)
+    whole_ms = time_ms(lambda: attention_grads(torch, k3.flash_attention, *case),
+                       reps=5)
+    print(f"seq: ring hops folded over {n} key blocks of {q.shape[2] // n} "
+          f"(B={q.shape[0]} H={q.shape[1]} T={q.shape[2]} D={q.shape[3]}, key "
+          f"lengths {SEQ_LENGTHS}): K3a/K3b/K3c launched {ring_launches}; max "
+          f"abs err vs whole-T flash_attention "
+          + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, vs_whole))
+          + "; vs the plain twin "
+          + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, vs_plain))
+          + f" (K3_TOL {K3_TOL}); all-masked element: mean of v, dq = dk = 0, "
+          f"dv = ΣdO / T; forward + backward {ring_ms:.3f} ms as {n} hops, "
+          f"{whole_ms:.3f} ms as one whole-T call; card {card_line()}")
+
+    # (b) a world of one process on NCCL.
+    runtime = initialize_runtime(
+        RuntimeConfig(coordinator_address=f"127.0.0.1:{free_port()}",
+                      num_processes=1, process_id=0),
+        device=None if DEVICE == "cuda" else DEVICE)
+    try:
+        dev = runtime.device.type
+        seq_mesh = init_device_mesh(dev, (1,), mesh_dim_names=("seq",))
+        before = counts()
+        sharded = attention_grads(
+            torch, lambda *a: ring_attention_sharded(seq_mesh, *a), *case)
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip(counts(), before)]
+        if moved != [1, 1, 1]:
+            raise AssertionError(f"ring_attention_sharded at one process "
+                                 f"launched K3a-c {moved} times")
+        same = all(torch.equal(a, b) for a, b in zip(sharded, whole))
+        if not same:
+            raise AssertionError("ring_attention_sharded over one process "
+                                 "differs from flash_attention")
+        stage_mesh = init_device_mesh(dev, (1,), mesh_dim_names=("stage",))
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+        pp = {"w": 0.1 * torch.randn(1, 256, 256, generator=g, device=DEVICE),
+              "b": 0.1 * torch.randn(1, 256, generator=g, device=DEVICE)}
+        x = torch.randn(PAR_BATCH, 256, generator=g, device=DEVICE)
+        stage_fn = lambda p, h: h + torch.tanh(h @ p["w"] + p["b"])
+        piped = pipeline_sharded(stage_mesh, stage_fn, pp, x, num_microbatches=8)
+        # The stage a microbatch at a time: the same GEMM shapes (cuBLAS may
+        # pick another algorithm for the whole batch's).
+        stage = {"w": pp["w"][0], "b": pp["b"][0]}
+        if not torch.equal(piped, torch.cat([stage_fn(stage, m)
+                                             for m in x.chunk(8)])):
+            raise AssertionError("pipeline_sharded at one stage differs from "
+                                 "its stage applied to each microbatch")
+        check_close("pipeline at one stage vs the whole batch", piped,
+                    stage_fn(stage, x), *FEAT_TOL)
+
+        cfg = DEERModelConfig(fusion_type="moe")
+        moe = create_complete_deer_model(cfg, seed=SEED, device=DEVICE)
+        n_moe = count_parameters(moe)
+        ref_model = create_complete_deer_model(cfg, seed=SEED, device=DEVICE)
+        ep_mesh = init_device_mesh(dev, (1,), mesh_dim_names=("expert",))
+        expert_parallel(moe, ep_mesh)
+        rows = make_synthetic_splits(SyntheticConfig(
+            n_train=PAR_BATCH * PAR_STEPS, n_val=0, n_test=0, seed=SEED + 17))["train"]
+        feats = [torch.from_numpy(rows[key][:PAR_BATCH]).to(DEVICE)
+                 for key in ("audio", "video", "text")]
+        with torch.no_grad():
+            got, want = moe(*feats), ref_model(*feats)
+        moe_same = all(torch.equal(got[key], want[key]) for key in want
+                       if torch.is_tensor(want[key]))
+        if not moe_same:
+            raise AssertionError("the expert-parallel MoE flagship differs from "
+                                 "the unmeshed model")
+
+        stack = create_deer_ensemble(n_members=SEQ_ENS_MEMBERS, seed=SEED,
+                                     device=DEVICE)[1]
+        stack = {key: val.clone() for key, val in stack.items()}
+        tcfg = TrainingConfig(batch_size=PAR_BATCH, num_epochs=1,
+                              warmup_epochs=0, scheduler="constant",
+                              learning_rate=1e-4, fused_epochs=False, seed=SEED)
+        plain, ref_losses, plain_p50 = ens_steps(torch, stack, tcfg, rows)
+        mesh = runtime.global_mesh(MeshConfig(data=1, model=1))
+        meshed, losses, p50 = ens_steps(
+            torch, stack, dataclasses.replace(tcfg, param_sharding="ensemble"),
+            rows, mesh, runtime)
+        pairs = [(a, plain.params[key]) for key, a in meshed.params.items()]
+        same = sum(torch.equal(a, b) for a, b in pairs)
+        if losses != ref_losses or same != len(pairs):
+            raise AssertionError(f"the meshed ensemble differs from the "
+                                 f"unmeshed: losses {losses} vs {ref_losses}, "
+                                 f"{same} of {len(pairs)} tensors equal")
+        with tempfile.TemporaryDirectory() as root:
+            ckpt = CheckpointManager(root)
+            state = meshed.state_dict()
+            ckpt.save(state, step=meshed.step)
+            ckpt.wait()
+            if ckpt.metadata(meshed.step)["format"] != "sharded":
+                raise AssertionError("the meshed ensemble's checkpoint is not "
+                                     "sharded")
+            back = ckpt.restore(step=meshed.step, template=state)
+            for key, val in state["model"].items():
+                if not torch.equal(back["model"][key].to_local(), val.to_local()):
+                    raise AssertionError(f"restored ensemble {key} differs")
+        print(f"seq: world of {runtime.process_count} on {runtime.backend}: "
+              f"ring_attention_sharded at {SEQ_SHAPE} launched K3a-c {moved}, "
+              f"equal to flash_attention in every bit; pipeline_sharded at "
+              f"one stage (8 microbatches) equal to the stage a microbatch at "
+              f"a time in every bit; the flagship with "
+              f"fusion_type='moe' ({n_moe:,} params) expert-parallel over an "
+              f"axis of 1 equal to the unmeshed model in every bit; "
+              f"EnsembleTrainer K={SEQ_ENS_MEMBERS} at batch {PAR_BATCH}, "
+              f"'ensemble' on a 1 × 1 mesh: {PAR_STEPS} steps equal to the "
+              f"unmeshed trainer's in every bit (losses {losses[0]:.6f} → "
+              f"{losses[-1]:.6f}, {same} of {len(pairs)} tensors), step p50 "
+              f"{p50:.3f} ms (unmeshed {plain_p50:.3f}), its sharded "
+              f"checkpoint restored bit for bit")
+        before = counts()
+        dry = dryrun_multichip(1, device=DEVICE)
+        dry_launches = [a - b for a, b in zip(counts(), before)]
+        if not dry["line"].startswith("dryrun_multichip OK"):
+            raise AssertionError(f"dry run: {dry['line']}")
+        print(f"seq: dry run at world 1 (its line above): K3a/K3b/K3c "
+              f"launched {dry_launches} (its ring at head size 32)")
+    finally:
+        shutdown_runtime(runtime)
+    print(f"seq: phase 17 took {time.perf_counter() - t_phase:.1f} s; "
+          f"card {card_line()}")
+    return ring_launches
+
+
 def main() -> int:
     import torch
 
@@ -4200,6 +4458,7 @@ def main() -> int:
     phase_zoo(torch, k1, k3)
     phase_memory(torch)
     phase_parallel(torch)
+    phase_seq_pipe_expert(torch, k3)
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

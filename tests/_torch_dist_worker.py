@@ -4,7 +4,8 @@
 
 `<dir>` holds `inputs.pt` (written by the test: the model's config and
 init state_dict, the global batch, the training config's fields, the
-predictions for the CCC) and a `store` file for the rendezvous
+predictions for the CCC, and under "par" the inputs of the ring, GPipe,
+MoE, ensemble and dry-run checks) and a `store` file for the rendezvous
 (file://), and gets `rank<r>.pt`, this rank's results, and the checkpoint
 directories. The process imports torch and the port only: JAX and the JAX
 package are blocked, so an import of either fails.
@@ -12,6 +13,7 @@ package are blocked, so an import of either fails.
 
 import os
 import sys
+from unittest import mock
 
 sys.modules["jax"] = None  # importing JAX here raises ImportError
 sys.modules["tpu_deer"] = None
@@ -174,8 +176,144 @@ def main(rank, world, data, model, root):
     out["loop"] = {"best_val_ccc": result["best_val_ccc"],
                    "final_step": result["final_step"],
                    "params": full_params(resumed)}
+    out.update(sequence_pipeline_expert(inputs["par"], runtime, mesh, root))
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
     shutdown_runtime(runtime)
+
+
+def _grads(loss, tensors):
+    return [t.detach().clone() for t in torch.autograd.grad(loss, tensors)]
+
+
+def sequence_pipeline_expert(par, runtime, mesh, root):
+    """Ring attention, GPipe and the expert-parallel MoE over every rank of
+    the world; at world 4 also a 2 × 2 ("data", "seq") ring, the ring at
+    T 256, two steps of the ensemble on the ("data", "model") mesh and its
+    sharded checkpoint, and the dry run. Outputs are this rank's; the
+    gradients of global inputs are this rank's part (the test sums them)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tpu_deer_torch.models.deer_model import structure
+    from tpu_deer_torch.models.fusion import MoEFusion
+    from tpu_deer_torch.parallel.dryrun import dryrun_batch, dryrun_multichip
+    from tpu_deer_torch.parallel.mesh import expert_parallel, shard_moe_params
+    from tpu_deer_torch.parallel.pipeline import pipeline_sharded
+    from tpu_deer_torch.parallel.sequence import ring_attention_sharded
+    from tpu_deer_torch.train.ensemble import EnsembleTrainer
+
+    world = runtime.process_count
+    res = {}
+    leaf = lambda a: torch.from_numpy(a).requires_grad_(True)
+
+    # Ring attention over ("seq",) of every rank: unmasked (B 2) and with
+    # key lengths 37, 53 and 0 (an all-masked element).
+    seq = init_device_mesh("cpu", (world,), mesh_dim_names=("seq",))
+    ring = par["ring"]
+    for case, rows, mask in (("plain", slice(0, 2), None),
+                             ("masked", slice(None), ring["mask"])):
+        q, k, v = (leaf(ring[x][rows]) for x in "qkv")
+        got = ring_attention_sharded(
+            seq, q, k, v, None if mask is None else torch.from_numpy(mask))
+        block = got.shape[2]
+        w = torch.from_numpy(ring["w"][rows]).narrow(
+            2, seq.get_local_rank("seq") * block, block)
+        res[f"ring_{case}"] = {"out": got.detach(),
+                               "grads": _grads((got * w).sum(), (q, k, v))}
+    if world == 4:
+        dp = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "seq"))
+        res["ring_dp"] = {"out": ring_attention_sharded(
+            dp, *(torch.from_numpy(par["ring_dp"][x]) for x in "qkv")),
+            "coords": (dp.get_local_rank("data"), dp.get_local_rank("seq"))}
+        res["ring_t256"] = ring_attention_sharded(
+            seq, *(torch.from_numpy(par["ring_t256"][x]) for x in "qkv"))
+
+    # GPipe over ("stage",): S = world, M = 2·S; gradients of the stacked
+    # parameters and of x; M ∈ {2, 6, 12} on 24 rows; a ragged split.
+    stage = init_device_mesh("cpu", (world,), mesh_dim_names=("stage",))
+    pipe = par["pipe"]
+    fn = lambda p, h: h + torch.tanh(h @ p["w"] + p["b"])
+    params = {"w": leaf(pipe["w"]), "b": leaf(pipe["b"])}
+    x = leaf(pipe["x"])
+    got = pipeline_sharded(stage, fn, params, x, num_microbatches=2 * world)
+    loss = torch.mean((got - torch.from_numpy(pipe["y"])) ** 2)
+    res["pipe"] = {"out": got.detach(),
+                   "grads": _grads(loss, (params["w"], params["b"], x))}
+    frozen = {k: v.detach() for k, v in params.items()}
+    res["pipe_micro"] = [pipeline_sharded(
+        stage, fn, frozen, torch.from_numpy(pipe["x24"]), num_microbatches=m)
+        for m in (2, 6, 12)]
+    try:
+        pipeline_sharded(stage, fn, frozen, torch.zeros(10, pipe["x"].shape[1]),
+                         num_microbatches=3)
+    except ValueError as e:
+        res["pipe_ragged"] = str(e)
+
+    # MoEFusion: the replicated module, then its experts split over
+    # ("expert",); forwards and the gradients of a mean-square loss.
+    moe_in = par["moe"]
+    mods = [torch.from_numpy(m) for m in moe_in["mods"]]
+    expert = init_device_mesh("cpu", (world,), mesh_dim_names=("expert",))
+    for case in ("replicated", "sharded"):
+        moe = MoEFusion(*moe_in["args"], **moe_in["kwargs"])
+        moe.load_state_dict(moe_in["init"])
+        if case == "sharded":
+            expert_parallel(moe, expert)
+        xs = [m.clone().requires_grad_(True) for m in mods]
+        got = moe(xs)
+        names, tensors = zip(*moe.named_parameters())
+        grads = _grads(torch.mean(got ** 2), (*tensors, *xs))
+        res[f"moe_{case}"] = {"out": got.detach(),
+                              "grads": dict(zip(names, grads)),
+                              "mod_grads": grads[len(names):],
+                              "experts": getattr(moe, "expert_range", None)}
+    placed = shard_moe_params(moe_in["init"], expert)
+    res["moe_placed"] = {
+        name: {"placements": [getattr(p, "dim", None) if p.is_shard() else "R"
+                              for p in d.placements],
+               "rows": d.to_local().shape[0],
+               "whole": torch.equal(d.full_tensor(), moe_in["init"][name])}
+        for name, d in placed.items()}
+    if world != 4:
+        return res
+
+    # The ensemble on the 2 × 2 ("data", "model") mesh under 'ensemble':
+    # the dry run's configuration and batch, two steps each with dropout
+    # off and on; then its state saved in the sharded format and restored.
+    ens = par["ensemble"]
+    local = shard_batch(dryrun_batch(world), mesh)
+    for case, drop in (("ensemble", False), ("ensemble_dropout", True)):
+        model = structure(DEERModelConfig(**ens["model"]))
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout) and not drop:
+                m.p = 0.0
+        trainer = EnsembleTrainer(
+            model, ens["init"], TrainingConfig(**ens["training"]),
+            steps_per_epoch=1, mesh=mesh, runtime=runtime, device="cpu")
+        steps = [trainer._train_step(local, 1.0, 1.0) for _ in range(2)]
+        res[case] = {"loss": [float(a["loss"]) for a in steps],
+                     "grad_norm": [float(a["grad_norm"]) for a in steps],
+                     "params": {k: v.detach().clone()
+                                for k, v in trainer.params.items()},
+                     "split": list(trainer._layout.split)}
+    state = trainer.state_dict()
+    ckpt = CheckpointManager(os.path.join(root, "ens_ckpt"))
+    ckpt.save(state, step=trainer.step)
+    ckpt.wait()
+    back = ckpt.restore(step=trainer.step, template=state)
+    res["ensemble_ckpt"] = {
+        "dtensors": sum(hasattr(v, "placements") for v in state["model"].values()),
+        "equal": all(torch.equal(back["model"][k].to_local(), v.to_local())
+                     for k, v in state["model"].items())}
+    # The dry run with every dropout of its models off, as the reference's
+    # deterministic steps that the test compares it with: each nn.Dropout it
+    # builds gets p = 0 (the model's config sets only some of their rates).
+    dropout_init = torch.nn.Dropout.__init__
+    with mock.patch.object(torch.nn.Dropout, "__init__",
+                           lambda self, p=0.5, inplace=False:
+                           dropout_init(self, 0.0, inplace)):
+        res["dryrun"] = dryrun_multichip(world, par["dryrun_init"], ens["init"],
+                                         device="cpu")
+    return res
 
 
 if __name__ == "__main__":

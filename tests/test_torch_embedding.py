@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import draw_params
 from tpu_deer.models.encoders import TextSequenceEncoder as JText
 from tpu_deer_torch.convert import flax_to_state_dict
 from tpu_deer_torch.data.vocab import PAD_ID
@@ -78,8 +79,7 @@ def test_text_encoder_keys_and_embed_gradient_match_jax():
     ids = ids[:, :24]
     mask = (ids != PAD_ID).astype(np.int32)
     jm = JText(40, output_dim=8, model_dim=16, num_layers=1, num_heads=2)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
-        jax.random.PRNGKey(0), ids, mask)["params"])
+    params = draw_params(jm, ids, mask)
     tm = TextSequenceEncoder(40, 8, model_dim=16, num_layers=1, num_heads=2)
     state = flax_to_state_dict(params)
     assert set(tm.state_dict()) == set(state)

@@ -11,6 +11,7 @@ same order, so equal bits are expected; held at rtol 1e-6.
 
 import contextlib
 import functools
+import inspect
 import json
 import os
 import signal
@@ -221,11 +222,25 @@ def test_entry_points_default_to_cuda(artifacts, tmp_path):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_from_exported_predict_json_matches_jax(artifacts, variant):
+def test_from_exported_predict_json_matches_jax(artifacts, variant,
+                                                monkeypatch):
     tdir, jdir, _, _ = artifacts[variant]
     a, v, t = _feats(11, 3)
     payload = {"audio": a.tolist(), "video": v.tolist(), "text": t.tolist()}
+    # from_exported's load_exported hands back the module's engine over the
+    # same artifact, as load_exported loaded it (each program takes seconds
+    # to deserialize; the server's subprocess below loads its own).
+    from tpu_deer_torch import export as texport
+
+    calls = []
+
+    def loaded(path, device=None, graphs=True):
+        calls.append((path, device))
+        return _loaded(tdir, jdir)[0]
+
+    monkeypatch.setattr(texport, "load_exported", loaded)
     svc = tserver.PredictionService.from_exported(tdir, device="cpu")
+    assert calls == [(tdir, "cpu")]
     got = svc.predict_json(payload)
     # The reference's from_exported is its load_exported and this: the
     # module's JAX engine over the same artifact.
@@ -330,13 +345,25 @@ def test_server_main_serves_a_checkpoint_with_streams(tmp_path):
     assert got["serving_channel"] == "calibrated"
 
 
-def test_cli_export_writes_a_loadable_artifact(tmp_path):
+def test_cli_export_writes_a_loadable_artifact(tmp_path, monkeypatch):
     """--mode export at the configured (narrow) width, int8, from a
     checkpoint: the artifact serves what the checkpoint's int8 engine
-    serves, with the channel the checkpoint recorded."""
+    serves, with the channel the checkpoint recorded. The CLI asks for the
+    default buckets; the export traces the one the request below pads to
+    (each `torch.export` program takes seconds to trace and to load)."""
     import yaml
 
     from tpu_deer_torch import cli
+    from tpu_deer_torch import export as texport
+    asked = []
+
+    def served_bucket(*args, **kwargs):
+        # The buckets the CLI asked for: positional (third) or by name.
+        asked.append(args[2] if len(args) > 2 else
+                     kwargs.get("batch_buckets", "default"))
+        return export_inference(*args[:2], **{**kwargs, "batch_buckets": (8,)})
+
+    monkeypatch.setattr(texport, "export_inference", served_bucket)
     from tpu_deer_torch.train.checkpoint import CheckpointManager
     from tpu_deer_torch.utils.config import default_config
 
@@ -354,7 +381,10 @@ def test_cli_export_writes_a_loadable_artifact(tmp_path):
                      "--model_path", models]) == 0
     engine = load_exported(str(tmp_path / "exported_model"), device="cpu")
     assert engine.manifest["quantized"] and engine.serving_channel == "calibrated"
-    assert engine.buckets == [1, 8, 64, 256]
+    assert asked == ["default"]
+    assert inspect.signature(export_inference).parameters[
+        "batch_buckets"].default == (1, 8, 64, 256)
+    assert engine.buckets == [8]
     feats = _feats(19, 3)
     ref = InferenceEngine.from_checkpoint(
         models, config=DEERModelConfig(**NARROW), quantize_weights=True,

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import draw_params
 from tpu_deer.models.attention import MultiHeadAttention as JMHA
 from tpu_deer.models.encoders import TextSequenceEncoder as JText
 from tpu_deer.ops.flash_attention import flash_attention as jflash
@@ -112,6 +113,33 @@ def test_all_masked_element_is_reference_attention(impl, rng):
     np.testing.assert_allclose(kern_out[0], out[0], **TOL)
 
 
+_reference_attention = jax.jit(reference_attention)
+
+
+@pytest.mark.parametrize("n_blocks,d", [(1, 16), (2, 16), (4, 16), (4, 32)])
+def test_ring_hops_folded_match_the_reference(n_blocks, d, rng):
+    """The ring's hops (`parallel/sequence.py`: K3a's tile and the merge
+    forward, K3b/K3c against the global lse backward) folded over n key
+    blocks in one process, against the reference's attention over the
+    whole sequence (which its ring equals: tests/test_sequence_parallel.py;
+    tests/test_torch_parallel_world.py holds the port's ring across
+    processes against the reference's ring): forward atol 1e-5, gradients
+    1e-4, on key lengths off the block edges (37, 53) and an all-masked
+    element (the mean of v over all T keys, as the reference's ring)."""
+    from tpu_deer_torch.parallel.sequence import fold_attention
+
+    q, k, v, do = (rng.normal(size=(3, 4, 64, d)).astype(np.float32)
+                   for _ in range(4))
+    mask = (np.arange(64)[None, :] < np.asarray([37, 53, 0])[:, None]
+            ).astype(np.float32)
+    ref, ref_grads = _jax(_reference_attention, q, k, v, mask, do)
+    out, grads = _torch(lambda *a: fold_attention(*a, n_blocks=n_blocks),
+                        q, k, v, mask, do)
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+    for g, r, name in zip(grads, ref_grads, "qkv"):
+        np.testing.assert_allclose(g, r, atol=1e-4, err_msg=name)
+
+
 def test_kernel_twins_match_the_autograd_plain(rng):
     """fwd (O, lse), bwd_dq (δ, dq) and bwd_dkv (dk, dv) on the CPU are the
     plain twins, and together give autograd's gradients of the plain
@@ -157,8 +185,7 @@ def test_mha_flash_branch_matches_jax(d_model, heads, t, rng):
     mask[1, t // 2:] = False
     jm = JMHA(d_model, heads, use_flash=True)
     jmask = jnp.asarray(mask)[:, None, None, :]
-    params = jax.tree_util.tree_map(
-        np.asarray, jm.init(jax.random.PRNGKey(0), x, x, x, jmask)["params"])
+    params = draw_params(jm, x, x, x, jmask)
     gy = rng.normal(size=(2, t, d_model)).astype(np.float32)
     loss = lambda p: jnp.sum(jm.apply({"params": p}, x, x, x, jmask) * gy)
     ref = np.asarray(jm.apply({"params": params}, x, x, x, jmask))
@@ -188,8 +215,7 @@ def test_text_encoder_flash_matches_jax(rng):
     mask[1, 25:] = 0
     jm = JText(vocab, 48, model_dim=64, num_layers=2, num_heads=2,
                use_flash=True)
-    params = jax.tree_util.tree_map(np.asarray, jm.init(
-        jax.random.PRNGKey(1), ids, mask)["params"])
+    params = draw_params(jm, ids, mask, seed=1)
     gy = rng.normal(size=(2, 48)).astype(np.float32)
     ref = jm.apply({"params": params}, ids, mask, return_sequence=True)
     loss = lambda p: jnp.sum(jm.apply({"params": p}, ids, mask)[0] * gy)

@@ -15,11 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import create_complete_deer_model as jax_create
 from tpu_deer.core import nig as jnig
-from tpu_deer.models.deer_model import (
-    DEERModelConfig as JConfig,
-    create_complete_deer_model as jax_create,
-)
+from tpu_deer.models.deer_model import DEERModelConfig as JConfig
 from tpu_deer_torch.convert import flax_to_state_dict, state_dict_to_flax
 from tpu_deer_torch.core import nig as tnig
 from tpu_deer_torch.models.attention import resolve_use_flash

@@ -137,6 +137,31 @@ def test_ensemble_specs_match_reference():
                                     model_size) == want, name
 
 
+@pytest.mark.parametrize("mode,data,model_size", [("tp", 1, 2), ("fsdp", 2, 1),
+                                                  ("fsdp", 4, 2)])
+def test_stacked_specs_match_reference(mode, data, model_size):
+    """The other layouts on a member-stacked state_dict (an ensemble's
+    under a mesh, `member_dims=1`): the reference's rules read a stacked
+    tree's leaves [K, ...] as they are (the member axis is a leaf axis, so
+    fsdp may split it), carried to the torch dims."""
+    one = _params("dryrun")
+    stacked = jax.tree_util.tree_map(lambda x: np.stack([x] * 4), one)
+    leaves, sd, offsets = _indexed(stacked, stacked=True)
+    split = 0
+    for name, arr in sd.items():
+        path, leaf, _, axes = _expected(leaves, offsets, name, arr[0], "tp", 1,
+                                        1, member=True)
+        spec = tuple(jmesh.param_spec(path, leaf, mode, data, model_size))
+        spec = spec + (None,) * (leaf.ndim - len(spec))
+        assert 0 not in axes  # the member's dims are the stacked leaf's 1..
+        want = (spec[0],) + tuple(spec[a] for a in axes)
+        got = tmesh.param_spec(name, arr.shape, mode, data, model_size,
+                               member_dims=1)
+        assert got == want, (name, got, want)
+        split += any(got)
+    assert split > 0
+
+
 def test_fsdp_at_data_4_shards_39_leaves():
     """On the dryrun's 4 × 2 the rules shard 39 of the 95 leaves over
     "data", on both sides. (MULTICHIP_r05.json's fsdp_sharded_leaves=41

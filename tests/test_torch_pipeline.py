@@ -306,11 +306,25 @@ def _small_config(tmp_path):
                                   ["--mode", "export", "--ensemble", "2"],
                                   ["--ensemble", "2"], ["--raw"]],
                          ids=["visualize", "export_ensemble", "ensemble", "raw"])
-def test_main_runs_what_was_refused(argv, tmp_path):
+def test_main_runs_what_was_refused(argv, tmp_path, monkeypatch):
     """The paths the CLI refused before deep ensembles, the plots and the
     raw-media pipeline were ported, run on the CPU at a narrow width; each
-    checks what it wrote."""
+    checks what it wrote. The ensemble's export traces one bucket of the
+    default four the CLI asks for (`torch.export` of the K = 2 program
+    takes seconds a bucket; the check reads the manifest's members and
+    sizes, which every bucket shares)."""
     out = tmp_path / "out"
+    from tpu_deer_torch import export as texport
+
+    asked = []
+
+    def one_bucket(*args, **kwargs):
+        asked.append(args[2] if len(args) > 2 else
+                     kwargs.get("batch_buckets", "default"))
+        return export(*args[:2], **{**kwargs, "batch_buckets": (8,)})
+
+    export = texport.export_inference
+    monkeypatch.setattr(texport, "export_inference", one_bucket)
     assert tcli.main([*argv, "--config", _small_config(tmp_path), "--output_dir",
                       str(out), "--experiment_name", "e", "--platform", "cpu",
                       "--quick", "--epochs", "1"]) == 0
@@ -331,6 +345,7 @@ def test_main_runs_what_was_refused(argv, tmp_path):
         with open(out / "exported_model" / "manifest.json") as f:
             manifest = json.load(f)
         assert manifest["ensemble_members"] == 2
+        assert asked == ["default"] and manifest["buckets"] == [8]
         assert manifest["n_params"] == 2 * sum(
             v.numel() for v in tcli.MultimodalDEERPipeline(
                 config_path=_small_config(tmp_path), output_dir=str(tmp_path),

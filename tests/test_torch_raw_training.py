@@ -20,6 +20,7 @@ import optax
 import pytest
 import torch
 
+from _jax_reference import draw_params
 from tpu_deer.core import losses as jlosses
 from tpu_deer.data import raw_corpus as jrc
 from tpu_deer.models.encoders import TextSequenceEncoder as JText
@@ -115,9 +116,8 @@ def _trained():
     train = splits["train"]
     jm = JRaw(vocab_size=vocab.vocab_size, **WIDTH)
     frames = np.zeros((2, 19, 84), np.float32)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
-        jax.random.PRNGKey(0), frames, train["video_frames"][:2],
-        train["token_ids"][:2], train["token_mask"][:2])["params"])
+    params = draw_params(jm, frames, train["video_frames"][:2],
+                         train["token_ids"][:2], train["token_mask"][:2])
 
     jt = JTrainer(jm, params, JConfig(**TRAIN))
 
@@ -234,8 +234,7 @@ def test_text_path_at_1024_takes_flash_and_matches_sdpa():
     mask[0, :700] = 1
     mask[1, :15] = 1
     jm = JText(60, 24, model_dim=32, num_layers=2, num_heads=4)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
-        jax.random.PRNGKey(2), ids, mask)["params"])
+    params = draw_params(jm, ids, mask, seed=2)
     gy = rng.normal(size=(2, 24)).astype(np.float32)
     fwd = jax.jit(lambda p: jm.apply({"params": p}, ids, mask,
                                      deterministic=True))

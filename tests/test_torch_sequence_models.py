@@ -1,6 +1,7 @@
 """The port's raw-sequence encoders and RawSequenceDEERModel against the JAX
 reference on the CPU, with the reference's weights carried over by
-tpu_deer_torch.convert.
+tpu_deer_torch.convert (drawn with numpy for the tree of the reference's
+init).
 
 Tolerance rtol 1e-4, atol 1e-5 as for the flagship model
 (tests/test_torch_model.py): float32 on both sides, sums in another order
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import draw_params
 from tpu_deer.models import encoders as jenc
 from tpu_deer.models.heads import MultiDimensionalDEER as JMultiDEER
 from tpu_deer.models.hierarchical_deer import RawSequenceDEERModel as JRaw
@@ -34,11 +36,6 @@ WIDTHS = {  # (encoder_dim, fusion_dim, heads)
     "narrow": (24, 48, 4),  # tests/test_raw_training.py
     "cli": (128, 256, 4),   # cli.py --raw, non-quick
 }
-
-
-def _np_params(jmodule, *args):
-    variables = jax.jit(jmodule.init)(jax.random.PRNGKey(0), *args)
-    return jax.tree_util.tree_map(np.asarray, variables["params"])
 
 
 def _apply(jmodule, params, *args, **kw):
@@ -78,7 +75,7 @@ def test_attention_pooling(rng):
     mask = np.ones((3, 7), bool)
     mask[1, 4:] = False
     jm = jenc.AttentionPooling(hidden_dim=11)
-    params = _np_params(jm, x, mask)
+    params = draw_params(jm, x, mask)
     tm = _load(tenc.AttentionPooling(20, 11), params)
     for m in (None, mask):
         ref = _apply(jm, params, x, m)
@@ -91,7 +88,7 @@ def test_bilstm(rng):
     full padded length as in flax's RNN(reverse=True, keep_order=True)."""
     x = rng.normal(size=(2, 11, 84)).astype(np.float32)
     jm = jenc.BiLSTM(hidden_dim=12, num_layers=2)
-    params = _np_params(jm, x)
+    params = draw_params(jm, x)
     tm = _load(tenc.BiLSTM(84, 12, 2), params)
     _close(tm(torch.from_numpy(x)), _apply(jm, params, x))
     assert all(not p.requires_grad for n, p in tm.named_parameters()
@@ -101,7 +98,7 @@ def test_bilstm(rng):
 def test_audio_sequence_encoder(rng):
     x = rng.normal(size=(3, 9, 84)).astype(np.float32)
     jm = jenc.AudioSequenceEncoder(output_dim=32, lstm_hidden=16)
-    params = _np_params(jm, x)
+    params = draw_params(jm, x)
     tm = _load(tenc.AudioSequenceEncoder(84, 32, lstm_hidden=16), params)
     _close(tm(torch.from_numpy(x)), _apply(jm, params, x))
 
@@ -112,7 +109,7 @@ def test_conv_block_same_padding(size, rng):
     and (1, 1) on an odd one; channels last at the boundary."""
     x = rng.normal(size=(2, size, size, 3)).astype(np.float32)
     jm = jenc.ConvBlock(features=8)
-    params = _np_params(jm, x)
+    params = draw_params(jm, x)
     tm = _load(tenc.ConvBlock(3, 8), params)
     got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     _close(got, _apply(jm, params, x))
@@ -121,7 +118,7 @@ def test_conv_block_same_padding(size, rng):
 def test_video_sequence_encoder(rng):
     x = rng.uniform(size=(2, 3, 16, 16, 3)).astype(np.float32)
     jm = jenc.VideoSequenceEncoder(output_dim=24, conv_features=(16, 32, 64))
-    params = _np_params(jm, x)
+    params = draw_params(jm, x)
     tm = _load(tenc.VideoSequenceEncoder(3, 24, (16, 32, 64)), params)
     _close(tm(torch.from_numpy(x)), _apply(jm, params, x))
 
@@ -131,7 +128,7 @@ def test_transformer_block_and_positions(rng):
     mask = np.ones((2, 10), bool)
     mask[1, 6:] = False
     jm = jenc.TransformerBlock(32, num_heads=4)
-    params = _np_params(jm, x, mask)
+    params = draw_params(jm, x, mask)
     tm = _load(tenc.TransformerBlock(32, 4), params)
     _close(tm(torch.from_numpy(x), torch.from_numpy(mask)),
            _apply(jm, params, x, mask))
@@ -144,7 +141,7 @@ def test_text_sequence_encoder(rng):
     _, _, ids, mask = _inputs(rng)
     jm = jenc.TextSequenceEncoder(50, output_dim=24, model_dim=32,
                                   num_layers=2, num_heads=4)
-    params = _np_params(jm, ids, mask)
+    params = draw_params(jm, ids, mask)
     tm = _load(tenc.TextSequenceEncoder(50, 24, model_dim=32, num_layers=2,
                                         num_heads=4), params)
     ref = _apply(jm, params, ids, mask, return_sequence=True)
@@ -156,7 +153,7 @@ def test_text_sequence_encoder(rng):
 def test_multi_dimensional_deer(rng):
     x = rng.normal(size=(4, 48)).astype(np.float32)
     jm = JMultiDEER(48, 24)
-    params = _np_params(jm, x)
+    params = draw_params(jm, x)
     tm = _load(MultiDimensionalDEER(48, 24), params)
     ref = _apply(jm, params, x)
     got = tm(torch.from_numpy(x))
@@ -171,7 +168,7 @@ def _raw_models(width):
     rng = np.random.default_rng(7)
     inputs = _inputs(rng)
     jm = JRaw(encoder_dim=enc, fusion_dim=fus, vocab_size=50, num_heads=heads)
-    params = _np_params(jm, *inputs)
+    params = draw_params(jm, *inputs)
     tm = _load(RawSequenceDEERModel(enc, fus, vocab_size=50, num_heads=heads),
                params)
     return jm, params, tm, inputs

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import create_complete_deer_model as jax_create
 from tpu_deer.data.features import MultimodalFeatureExtractor as JExtractor
-from tpu_deer.models.deer_model import create_complete_deer_model as jax_create
 from tpu_deer.serve import InferenceEngine as JEngine
 from tpu_deer_torch.convert import flax_to_state_dict
 from tpu_deer_torch.data.features import (

@@ -21,13 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import create_complete_deer_model as jax_create
 from tpu_deer import server as jserver
 from tpu_deer import stream as jstream
 from tpu_deer.eval import ood as jood
-from tpu_deer.models.deer_model import (
-    DEERModelConfig as JConfig,
-    create_complete_deer_model as jax_create,
-)
+from tpu_deer.models.deer_model import DEERModelConfig as JConfig
 from tpu_deer.ops.audio_frontend import AudioFrontendConfig as JFrontend
 from tpu_deer.serve import InferenceEngine as JEngine
 from tpu_deer_torch import server as tserver

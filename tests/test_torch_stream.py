@@ -19,11 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import create_complete_deer_model as jax_create
 from tpu_deer.eval import ood as jood
-from tpu_deer.models.deer_model import (
-    DEERModelConfig as JConfig,
-    create_complete_deer_model as jax_create,
-)
+from tpu_deer.models.deer_model import DEERModelConfig as JConfig
 from tpu_deer.ops import audio_frontend as jaf
 from tpu_deer import stream as jstream
 from tpu_deer_torch import stream as tstream

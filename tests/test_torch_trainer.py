@@ -20,6 +20,7 @@ validation metrics rtol 1e-4, atol 1e-5 (computed from those predictions).
 import functools
 import json
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -357,8 +358,11 @@ def test_async_checkpoint_failures_drain(tmp_path, monkeypatch):
         ckpt.save(state, step=2)
     ckpt.wait()
     assert ckpt.all_steps() == [2]
+    gate = threading.Event()  # the worker waits: both writes still queued
+    ckpt._pool.submit(gate.wait)
     ckpt.save(state, step=3)
     ckpt.save(state, step=4)
+    gate.set()
     with pytest.raises(OSError, match="disk full 3"):
         ckpt.wait()
     ckpt.wait()  # drained: nothing stale
@@ -398,11 +402,19 @@ def test_unported_knobs_raise(tmp_path):
             ArrayDataset(tr), 16, shuffle=True, drop_last=True)}, 0)
         assert np.isfinite(metrics["loss"]) and knob.step == 6
     model = CompleteDEERModel(DEERModelConfig(**WIDTH))
-    # DEERTrainer under a mesh is ported (tests/test_torch_parallel_*.py);
-    # the ensemble over a mesh is not.
-    with pytest.raises(NotImplementedError, match="11b"):
-        EnsembleTrainer(model, {"w": torch.zeros(2, 1)}, TrainingConfig(),
-                        mesh=object(), device="cpu")
+    # DEERTrainer and EnsembleTrainer under a mesh are ported
+    # (tests/test_torch_parallel_*.py); what still raises is a batch that
+    # the mesh's "data" axis does not divide, for the ensemble as for one
+    # model.
+
+    class DataTwo:  # a ("data", "model") = (2, 1) mesh's shape
+        mesh_dim_names = ("data", "model")
+        size = staticmethod(lambda i: (2, 1)[i])
+
+    with pytest.raises(ValueError, match="must be divisible by the mesh"):
+        EnsembleTrainer(model, {"w": torch.zeros(2, 1)},
+                        TrainingConfig(batch_size=3), mesh=DataTwo(),
+                        device="cpu")
     trainer = DEERTrainer(model, TrainingConfig(rng_impl="threefry2x32"),
                           device="cpu")
     # MC dropout and teacher targets are ported: a bad sample count

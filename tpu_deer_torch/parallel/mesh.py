@@ -23,8 +23,11 @@
 `MeshLayout` is what the trainer uses: the pieces its `state_dict()` gives,
 the all-gather of the outputs and the all-reduce of the gradients over
 "data", and the global batch's dropout masks (`row_dropout`; see
-`train/trainer.py`). MoE expert placement (`shard_moe_params`) comes with
-sequence and pipeline parallelism in a later slice.
+`train/trainer.py`). `shard_moe_params` places a state_dict on an expert
+axis (the reference's expert-parallel layout) and `expert_parallel` makes
+each MoEFusion of a module hold and run only its process's experts
+(`_ExpertParallelMoE`, a subclass of `models/fusion.py:MoEFusion` given to
+each instance; the model layer knows nothing of process groups).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_deer_torch.convert import _KERNEL_AXES, flax_key, member_axes
+from tpu_deer_torch.models.layers import dense, softmax
+from tpu_deer_torch.parallel.collectives import psum, sum_grads
 
 AXES = ("data", "model")
 PARAM_SHARDING_MODES = ("tp", "fsdp", "replicated", "ensemble")
@@ -142,17 +147,23 @@ def flax_param_spec(path: str, flax_shape: Sequence[int], mode: str,
 
 
 def param_spec(name: str, shape: Sequence[int], mode: str, data_size: int,
-               model_size: int = 1) -> tuple:
+               model_size: int = 1, member_dims: int = 0) -> tuple:
     """The mesh axis ("data", "model" or None) of each dim of state_dict
     tensor `name` of `shape` under layout `mode` ('tp', 'fsdp', 'ensemble'
     or 'replicated'; another raises ValueError). An LSTM tensor follows the
-    rules as a plain tensor of its own shape. Under 'ensemble' the tensor is
-    a member-stacked one ([K, ...] on both sides), read as it is."""
-    view = None if mode == "ensemble" else flax_view(name, shape)
+    rules as a plain tensor of its own shape. `member_dims` leading axes
+    are a stack's member axes ([K, ...] on both sides: a deep ensemble's
+    parameters), which the rules see as the flax leaf's leading axes, as
+    the reference's rules see a stacked tree's leaves; under 'ensemble' the
+    tensor is such a stack, read as it is."""
+    view = None if mode == "ensemble" else flax_view(name, shape[member_dims:])
     if view is None:
         return flax_param_spec(name, tuple(shape), mode, data_size, model_size)
     path, flax_shape, axes = view
-    flax_spec = flax_param_spec(path, flax_shape, mode, data_size, model_size)
+    lead = tuple(int(n) for n in shape[:member_dims])
+    axes = tuple(range(member_dims)) + tuple(member_dims + a for a in axes)
+    flax_spec = flax_param_spec(path, lead + flax_shape, mode, data_size,
+                                model_size)
     return tuple(flax_spec[a] for a in axes)
 
 
@@ -178,13 +189,13 @@ def ensemble_sharding_rules(name: str, shape: Sequence[int],
 
 # -- placement ------------------------------------------------------------------
 
-def placements(spec: Sequence[Optional[str]]):
-    """The DTensor placements (one a mesh axis, "data" then "model") of a
-    spec."""
+def placements(spec: Sequence[Optional[str]], axes: Sequence[str] = AXES):
+    """The DTensor placements (one a mesh axis, in `axes`' order: "data"
+    then "model" by default) of a spec."""
     from torch.distributed.tensor import Replicate, Shard
 
     return tuple(Shard(spec.index(axis)) if axis in spec else Replicate()
-                 for axis in AXES)
+                 for axis in axes)
 
 
 def batch_sharding(mesh=None):
@@ -240,8 +251,8 @@ def to_dtensor(local: torch.Tensor, mesh, spec, shape) -> Any:
 
     shape = torch.Size(shape)
     stride = tuple(int(s) for s in torch.empty(shape, device="meta").stride())
-    return DTensor.from_local(local, mesh, placements(spec), run_check=False,
-                              shape=shape, stride=stride)
+    return DTensor.from_local(local, mesh, placements(spec, mesh.mesh_dim_names),
+                              run_check=False, shape=shape, stride=stride)
 
 
 def shard_params(params: Mapping[str, torch.Tensor], mesh, mode: str = "tp") -> dict:
@@ -298,12 +309,13 @@ class MeshLayout:
     checkpoint writes. A tensor is *split* where a mesh axis of size > 1
     divides it."""
 
-    def __init__(self, mesh, mode: str, params: Mapping[str, torch.Tensor]):
+    def __init__(self, mesh, mode: str, params: Mapping[str, torch.Tensor],
+                 member_dims: int = 0):
         self.mesh = mesh
         self.mode = mode
         self.sizes, self.coords = mesh_shape(mesh), coordinate(mesh)
         self.specs = {n: param_spec(n, p.shape, mode, self.sizes["data"],
-                                    self.sizes["model"])
+                                    self.sizes["model"], member_dims)
                       for n, p in params.items()}
         self.split = [n for n, s in self.specs.items()
                       if any(a and self.sizes[a] > 1 for a in s)]
@@ -321,13 +333,14 @@ class MeshLayout:
         return slice(*chunk_range(n, self.sizes["data"], self.coords["data"]))
 
     # -- the step's collectives ------------------------------------------------
-    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The global batch's rows of `x` (this process's rows), gathered
-        over "data"; differentiable (`_GatherRows`)."""
+    def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The global batch's rows of `x` (this process's rows along `dim`),
+        gathered over "data"; differentiable (`_GatherRows`)."""
         if self.data_group is None:
             return x
-        return _GatherRows.apply(x, self.data_group, self.coords["data"],
-                                 self.sizes["data"])
+        return _GatherRows.apply(x.movedim(dim, 0), self.data_group,
+                                 self.coords["data"],
+                                 self.sizes["data"]).movedim(0, dim)
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """Σ over "data" of every rank's gradients (each from its own rows),
@@ -387,3 +400,86 @@ def row_dropout(model: torch.nn.Module, index: int, parts: int):
     finally:
         for module in swapped:
             del module.forward
+
+
+# -- expert parallelism -----------------------------------------------------------
+
+def _is_expert(name: str) -> bool:
+    return "experts" in name.split(".")
+
+
+def shard_moe_params(params: Mapping[str, torch.Tensor], mesh,
+                     axis_name: str = "expert") -> dict:
+    """The reference's expert-parallel placement of a state_dict: tensors
+    under an `experts` module (their leading axis the expert axis) split
+    along it over the `axis_name` axis of `mesh` (any DeviceMesh that has
+    it), everything else (the gate, the rest of the model) replicated.
+    Every process passes the full tensors and keeps its piece (a copy), as
+    `shard_params`; name → DTensor."""
+    parts = mesh.size(list(mesh.mesh_dim_names).index(axis_name))
+    index = mesh.get_local_rank(axis_name)
+    out = {}
+    for name, t in params.items():
+        spec = (None,) * t.dim()
+        piece = t.detach()
+        if _is_expert(name) and t.dim() >= 1:
+            spec = (axis_name,) + spec[1:]
+            piece = piece[slice(*chunk_range(t.shape[0], parts, index))]
+        out[name] = to_dtensor(piece.clone(), mesh, spec, t.shape)
+    return out
+
+
+class _ExpertParallelMoE:
+    """The forward of a MoEFusion that holds experts [lo, hi) of E only
+    (`expert_parallel` sets the class of each instance to a subclass that
+    puts this first): it runs those experts, weights them by their columns
+    of the replicated gate, and one psum over the group sums the blend.
+    The gate's and the input's gradients from the experts are summed over
+    the group (each process's part comes from its experts); the experts'
+    are their own."""
+
+    expert_group = None
+    expert_range = (0, 0)
+
+    def forward(self, modalities) -> torch.Tensor:
+        group = self.expert_group
+        x = torch.cat(list(modalities), dim=-1)
+        gate = softmax(dense(self.gate, x, self.dtype))  # [B, E]
+        start, stop = self.expert_range
+        outs = self.experts(sum_grads(x, group))  # [E_local, B, D]
+        gate = sum_grads(gate, group)[:, start:stop]
+        return psum(torch.einsum("be,ebd->bd", gate.to(outs.dtype), outs), group)
+
+
+@functools.lru_cache(maxsize=None)
+def _expert_parallel_class(base: type) -> type:
+    return type("ExpertParallel" + base.__name__, (_ExpertParallelMoE, base), {})
+
+
+def expert_parallel(model: torch.nn.Module, mesh,
+                    axis_name: str = "expert") -> torch.nn.Module:
+    """Make every MoEFusion of `model` expert-parallel over the `axis_name`
+    axis of `mesh`: each process keeps its experts (`torch.chunk`'s split
+    of E, the pieces `shard_moe_params` gives: rows of every expert
+    parameter) and runs only those, and one psum over the axis sums the
+    gate-weighted blend (`_ExpertParallelMoE`). Every process starts from
+    the same full model (a seeded init, or a checkpoint). In place;
+    returns `model`."""
+    from tpu_deer_torch.models.fusion import MoEFusion
+
+    names = list(mesh.mesh_dim_names)
+    parts = mesh.size(names.index(axis_name))
+    index = mesh.get_local_rank(axis_name)
+    group = mesh.get_group(axis_name)
+    for module in model.modules():
+        if not isinstance(module, MoEFusion):
+            continue
+        start, stop = chunk_range(module.gate.out_features, parts, index)
+        with torch.no_grad():
+            for layer in module.experts.mlp.layers:
+                for name in ("weight", "bias"):
+                    p = getattr(layer, name)
+                    p.data = p.data[start:stop].clone()
+        module.__class__ = _expert_parallel_class(type(module))
+        module.expert_group, module.expert_range = group, (start, stop)
+    return model

@@ -22,6 +22,15 @@ The non-finite gate covers the whole stacked step: one member's NaN skips
 the step for all K. Spike backoff and plateau watch the member-mean train
 loss and the combined validation CCC.
 
+Under a device mesh (`mesh=`, `runtime=`) the step is the single model's
+(`train/trainer.py`): replicated data parallelism, each process's rows of
+every member's outputs all-gathered over "data", the global batch's
+dropout masks, the gradients summed over "data". With
+`TrainingConfig(param_sharding="ensemble")` the member axis is split over
+"model" in `state_dict()`'s DTensors and a sharded checkpoint (the
+reference's layout); the other layouts read the stack's leaves as the
+reference's rules read a stacked tree's.
+
 Prediction and validation combine the members by moment matching
 (`core/nig.py:combine_members`), so evaluators, calibration and conformal
 intervals read an ensemble as they read one model. `predict(return_nig=
@@ -31,6 +40,7 @@ reference's do.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
@@ -114,10 +124,6 @@ class EnsembleTrainer(DEERTrainer):
                  config: TrainingConfig = TrainingConfig(),
                  steps_per_epoch: int = 100, mesh=None, runtime=None,
                  device: DeviceLike = None):
-        if mesh is not None or runtime is not None:
-            raise NotImplementedError(
-                "EnsembleTrainer under a device mesh (the members over "
-                "'model') is not ported yet (ROADMAP queue 1, entry 11b)")
         if not stacked_params:
             raise ValueError("empty parameter set")
         sizes = {v.shape[0] if v.dim() else None for v in stacked_params.values()}
@@ -127,6 +133,8 @@ class EnsembleTrainer(DEERTrainer):
                 f"sizes {sorted(map(str, sizes))} — build the stack with "
                 "create_deer_ensemble()")
         self.n_members = sizes.pop()
+        if device is None and runtime is not None:
+            device = runtime.device
         target = resolve_device(device)
         self._stack = {k: v.detach().to(target).clone().requires_grad_(True)
                        for k, v in stacked_params.items()}
@@ -152,18 +160,25 @@ class EnsembleTrainer(DEERTrainer):
     # -- training ----------------------------------------------------------
     def _loss_fn(self, batch: dict, dataset_weight):
         args = (batch["audio"], batch["video"], batch["text"])
-        terms = lambda out: self._loss_terms(out, batch, dataset_weight)
-        if self.config.remat:
+        layout = self._layout
+        if self.config.remat or layout is not None:
+            def forward(params, *x):
+                with layout.dropout(self.model) if layout else nullcontext():
+                    return vmap(lambda p: functional_call(self.model, p, x),
+                                randomness="different")(params)
+
             # One checkpointed block around the vmapped member forwards:
             # the reference checkpoints each member's forward inside its
             # vmap, which torch.func.vmap refuses (the recomputation runs
             # outside the vmap); both recompute the same function.
-            forward = lambda params, *x: vmap(
-                lambda p: functional_call(self.model, p, x),
-                randomness="different")(params)
-            out = remat(forward, self._params, *args, recompute=self._recompute)
-            losses, auxes = vmap(terms)(out)
+            out = (remat(forward, self._params, *args, recompute=self._recompute)
+                   if self.config.remat else forward(self._params, *args))
+            if layout is not None:  # every member's rows of the global batch
+                out, batch = self._global_batch(out, batch)
+            losses, auxes = vmap(
+                lambda o: self._loss_terms(o, batch, dataset_weight))(out)
         else:
+            terms = lambda out: self._loss_terms(out, batch, dataset_weight)
             losses, auxes = member_forward(self.model, self._params, *args,
                                            terms, randomness="different")
         aux = {k: v.mean(0) for k, v in auxes.items()}

@@ -113,6 +113,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
 import time
 import weakref
@@ -322,7 +323,8 @@ class DEERTrainer:
             for p in self._params.values():
                 if p.is_floating_point():
                     p.data = p.data.to(storage)
-        self._layout = (MeshLayout(mesh, config.param_sharding, self._params)
+        self._layout = (MeshLayout(mesh, config.param_sharding, self._params,
+                                   self._member_dims)
                         if mesh is not None else None)
         self.optimizer = self.optimizer_cls(
             self._params, groups, self.schedule, config.weight_decay,
@@ -498,15 +500,17 @@ class DEERTrainer:
         return self._loss_terms(out, batch, dataset_weight)
 
     def _global_batch(self, out: dict, batch: dict) -> tuple[dict, dict]:
-        """The outputs the loss reads and the batch's targets, all-gathered
-        over the mesh's "data" axis (differentiably)."""
-        gather = self._layout.gather_rows
+        """The outputs the loss reads (rows on the axis after the member
+        axes) and the batch's targets, all-gathered over the mesh's "data"
+        axis (differentiably)."""
+        gather = functools.partial(self._layout.gather_rows,
+                                   dim=self._member_dims)
         names = self.model.config.dim_names
         out_g = {f"{n}_params": type(out[f"{n}_params"])(
             *map(gather, out[f"{n}_params"])) for n in names}
         for k in ("mu_all", "uncertainty_all", "calibrated_uncertainty"):
             out_g[k] = gather(out[k])
-        return out_g, {k: gather(v) for k, v in batch.items()
+        return out_g, {k: self._layout.gather_rows(v) for k, v in batch.items()
                        if k in ("labels", "teacher_mu", "teacher_unc")}
 
     def _loss_terms(self, out: dict, batch: dict, dataset_weight):
