@@ -261,6 +261,26 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               equal to the unmeshed trainer's in every bit, step p50 both
               ways, its sharded checkpoint restored bit for bit; and
               `parallel/dryrun.py:dryrun_multichip(1)`, its line printed.
+ 18. studies — the serving, streaming and bf16 study twins' paths
+              (`tpu_deer_torch/experiments/{streaming_demo,server_load,
+              bf16_diag}.py`) on the float32 flagship: (a) streams of
+              speech-like audio at S 256 and 4,096, each push a replay of
+              the tick's graph: push p50 and real-time factor, K2's device
+              events in one profiled push (1) and in one replay of the
+              K-tick graph (K: 8 at S 256, 32 at S 4,096, chunks drawn on
+              the card inside it) with its time; K2 at R 65,536 (one tick
+              of 4,096 streams) against its plain twin within K1_TOL; the
+              streamed features of 8 streams against the offline
+              extractor (one K1 launch) at correlation >= 0.9999; the
+              K-tick graph's features and μ against K pushes of its own
+              chunks within FEAT_TOL; (b) the serving cell at 16 clients
+              × 10 requests over localhost HTTP, serialized and
+              micro-batched: every reply against `engine.predict` of the
+              row within FEAT_TOL, p50, p99 and rows a dispatch; (c) the
+              `adamw` and `adamw-f32opt` stages at batch 4,096 in both
+              storages, each a CUDA graph of the step: at float32 storage
+              the two equal in every bit after the same steps, ms and
+              kernels a replay.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -283,6 +303,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -431,6 +452,14 @@ PAR_MODES = ("tp", "fsdp", "replicated")
 # ensemble (K = 4) at batch 4,096, 8 per-step steps under a 1 × 1 mesh.
 SEQ_SHAPE, SEQ_BLOCKS = (4, 8, 8192, 64), 4
 SEQ_LENGTHS = (8192, 6001, 2049, 0)
+# Phase 18: the study twins' paths. Streams at these S (pushes a size: one
+# warm, the rest timed), the K-tick graph's K a size, the serving cell, the
+# bf16 stages' batch and replays.
+STUDY_STREAMS = {256: 8, 4096: 32}
+STUDY_PUSHES = 6
+STUDY_CORR = 0.9999
+STUDY_CELL = (16, 10)
+STUDY_BATCH, STUDY_STEPS = 4096, 3
 SEQ_ENS_MEMBERS = 4
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
@@ -498,56 +527,21 @@ def time_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def profiled(torch, fn, expect, windows, markers=64):
-    """Run fn under the profiler; returns ([(device event name, ms)], wall
-    ms) of the first of up to `windows` windows that lost none of fn's
-    device events, else None. On the H100 the profiler drops the first
-    device events of a window, more of them the longer the process has
-    run (one more every 5-25 s; now and then all). So each window first
-    runs `markers` empty kernels (torch.cuda._sleep(1), doubled at each
-    retry) and counts only if one of them and, for each name in `expect`,
-    at least its count of fn's device events came through."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(markers):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        kept = sum("spin_kernel" in name for name, _ in events)
-        events = [(name, ms) for name, ms in events if "spin_kernel" not in name]
-        short = {key: n for key, n in (expect or {}).items()
-                 if sum(key in name for name, _ in events) < n}
-        if kept and events and not short:
-            return events, wall_ms
-        print(f"profiler: a window lost {markers - kept} of its {markers} "
-              f"markers" + "".join(f", {key} < {n}" for key, n in short.items()))
-        markers *= 2
-    return None
-
-
 def device_ms(torch, fn, calls=20, expect=(), windows=3):
     """Device time per call of fn (ms): its kernels' and memsets' device
     time under the profiler over `calls` calls, each of the kernels named
     in `expect` seen once a call; None (not measured) if no window had
     them all. For kernels of tens of microseconds, where time_ms also
     counts the gaps while the host enqueues the next launch."""
+    from tpu_deer_torch.experiments.twin import profiled
+
     fn()
 
     def run():
         for _ in range(calls):
             fn()
 
-    got = profiled(torch, run, {key: calls for key in expect}, windows)
+    got = profiled(run, {key: calls for key in expect}, windows)
     return None if got is None else sum(ms for _, ms in got[0]) / calls
 
 
@@ -559,9 +553,11 @@ def ms_text(ms):
 def profile_window(torch, label, fn, expect=None, windows=1):
     """Print the device's busy share and top kernels over one call of fn
     (taken again, up to `windows` calls, while the profiler misses one of
-    the `expect` launches: see `profiled`); returns {kernel name: device
+    the `expect` launches: see `twin.profiled`); returns {kernel name: device
     ms} ({} if not measured)."""
-    got = profiled(torch, fn, expect, windows)
+    from tpu_deer_torch.experiments.twin import profiled
+
+    got = profiled(fn, expect, windows)
     if got is None:
         print(f"profile {label}: device time not measured (the profiler "
               f"missed device events in {windows} window(s))")
@@ -1041,6 +1037,8 @@ def phase_stream(torch, k2, model, detector):
     """256 live streams at full width, the tick replayed from its CUDA
     graph; returns (K2 launches, the graphed and the eager recognizer, the
     last tick's chunks and context)."""
+    from tpu_deer_torch.experiments.twin import profiled
+
     from tpu_deer_torch.ops.audio_frontend import (
         extract_utterance_features_batch,
     )
@@ -1091,7 +1089,7 @@ def phase_stream(torch, k2, model, detector):
         run["wrapper"] = k2.mfcc_frames.launches
         run["replays"] = replays() - before
 
-    got = profiled(torch, main_path, {"mfcc_frames": TICKS}, windows=6)
+    got = profiled(main_path, {"mfcc_frames": TICKS}, windows=6)
     if got is None:
         raise AssertionError(f"K2's launches in the main path's {TICKS} "
                              f"ticks not measured: the profiler missed "
@@ -1940,8 +1938,10 @@ def k4_device_ms(torch, fn, calls=20, windows=3):
     """K4's device time a call (ms) under the profiler, or None (not
     measured); raises unless the window holds exactly one K4 kernel a call
     and no other device event (no memset)."""
+    from tpu_deer_torch.experiments.twin import profiled
+
     fn()
-    got = profiled(torch, lambda: [fn() for _ in range(calls)], {K4_NAME: calls},
+    got = profiled(lambda: [fn() for _ in range(calls)], {K4_NAME: calls},
                    windows)
     if got is None:
         return None
@@ -1957,6 +1957,8 @@ def k4_calls_ms(torch, quantize, weights, reps=20):
     """Calls quantize(w, seed=i) on each of `weights` in turn: (median host
     ms of the whole round to a synchronize over `reps` rounds, its device
     ms under the profiler or None, the device events in that window)."""
+    from tpu_deer_torch.experiments.twin import profiled
+
     def one_round():
         for i, w in enumerate(weights):
             quantize(w, seed=i)
@@ -1969,7 +1971,7 @@ def k4_calls_ms(torch, quantize, weights, reps=20):
         one_round()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
-    got = profiled(torch, one_round, {}, 3)
+    got = profiled(one_round, {}, 3)
     dev = None if got is None else sum(ms for _, ms in got[0])
     return float(np.median(host)), dev, None if got is None else len(got[0])
 
@@ -4397,6 +4399,197 @@ def phase_seq_pipe_expert(torch, k3):
     return ring_launches
 
 
+def phase_studies(torch, k1, k2, model):
+    """Phase 18 (see the module docstring); returns (K1 launches, K2
+    launches) of its driven path: K2's are the wrapper's eager launches (the
+    graphs' warm-up runs) plus each replay's device events, one a push and
+    K a K-tick replay, as the profiler counts them in a replay of each. The
+    wrapper's count also takes its calls recorded into a capture, which
+    launch nothing: the phase counts them as they are made (the front end
+    calls a stand-in that notes calls made while the stream captures) and
+    takes them out, with the launches of its comparison against the plain
+    twin."""
+    from tpu_deer_torch.experiments import bf16_diag, server_load, twin
+    from tpu_deer_torch.experiments.streaming_demo import (
+        feature_correlation,
+        push_timings,
+        speech_like,
+        tick_chain_graph,
+    )
+    from tpu_deer_torch.ops import audio_frontend as taf
+    from tpu_deer_torch.stream import StreamingConfig, StreamingRecognizer
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE)
+    sync = twin.synchronize(device)
+    cfg = StreamingConfig()
+    chunk = cfg.chunk_samples
+    chunk_s = chunk / cfg.frontend.sample_rate
+    bases = taf._device_bases(cfg.frontend, device)
+    base_audio = speech_like(np.random.default_rng(SEED + 18), min(STUDY_STREAMS),
+                             (STUDY_PUSHES * chunk + 1) / SR, SR)
+    base_audio = base_audio[:, :STUDY_PUSHES * chunk]
+    k1.mfcc_signal.launches = k2.mfcc_frames.launches = 0
+    k1_n, k2_replayed, k2_compared = 0, 0, 0
+    wrapper, k2_captured = k2.mfcc_frames, 0
+
+    def recorded(*args, **kwargs):
+        nonlocal k2_captured
+        k2_captured += torch.cuda.is_current_stream_capturing()
+        return wrapper(*args, **kwargs)
+
+    # (a) streams: pushes, the K-tick graph, K2 at the tick's rows. The
+    # front end reaches K2 through its module's `k2`; the wrapper keeps
+    # counting on itself.
+    taf.k2 = SimpleNamespace(**{**vars(k2), "mfcc_frames": recorded})
+    try:
+        for S, K in STUDY_STREAMS.items():
+            audio = np.tile(base_audio, (S // len(base_audio), 1))
+            rec, times, out = push_timings(model, cfg, S, audio, STUDY_PUSHES, device)
+            p50 = float(np.median(times)) * 1e3
+            if S == min(STUDY_STREAMS):
+                before = k1.mfcc_signal.launches
+                corr = feature_correlation(out["features"][:8], audio[:8], cfg,
+                                           device)
+                k1_n = k1.mfcc_signal.launches - before
+                if not corr >= STUDY_CORR or k1_n != 1:
+                    raise AssertionError(f"studies: streamed vs offline features "
+                                         f"correlation {corr} (K1 launched {k1_n})")
+                print(f"studies (a): 8 streams after {STUDY_PUSHES} pushes vs "
+                      f"the offline extractor: mean correlation {corr:.7f} "
+                      f"(>= {STUDY_CORR}), K1 launched {k1_n}")
+            got = twin.profiled(lambda: rec.push(audio[:, :chunk]),
+                                {"mfcc_frames": 1}, windows=4)
+            per_push = (None if got is None
+                        else sum("mfcc_frames" in n for n, _ in got[0]))
+            if per_push != 1:
+                raise AssertionError(f"studies: K2 device events in one push at "
+                                     f"S {S}: {per_push}")
+            k2_replayed += rec._graph.replays
+            del rec, out
+
+            frames = torch.cat([torch.zeros(S, cfg.sample_carry, device=device),
+                                torch.from_numpy(audio[:, :chunk]).to(device)], -1)
+            frames = frames.unfold(-1, cfg.frontend.n_fft,
+                                   cfg.frontend.hop_length).reshape(
+                                       -1, cfg.frontend.n_fft).contiguous()
+            before = wrapper.launches
+            errs = check_mfcc(torch, f"K2 R={len(frames)}",
+                              wrapper(frames, bases, cfg.frontend.n_fft),
+                              k2.mfcc_frames_plain(frames, bases, cfg.frontend.n_fft))
+            k2_compared += wrapper.launches - before
+
+            chain = tick_chain_graph(model, cfg, S, K, device,
+                                     keep=S == min(STUDY_STREAMS))
+            first = chain()
+            if "chunks" in first:
+                pushed = StreamingRecognizer(model, n_streams=S, cfg=cfg, device=device)
+                err = 0.0
+                for k in range(K):
+                    o = pushed.push(first["chunks"][k])
+                    err = max(err, *(check_close(
+                        f"tick {k} {key}", torch.from_numpy(first[key][k]),
+                        torch.from_numpy(o[key]), *FEAT_TOL)
+                        for key in ("features", "mu")))
+                k2_replayed += pushed._graph.replays
+                del pushed
+                print(f"studies (a): the K-tick graph at S {S}, K {K} against {K} "
+                      f"pushes of its own drawn chunks: features and μ within "
+                      f"FEAT_TOL, max abs err {err:.3e}")
+            got = twin.profiled(chain, {"mfcc_frames": K}, windows=4)
+            per_chain = (None if got is None
+                         else sum("mfcc_frames" in n for n, _ in got[0]))
+            if per_chain != K:
+                raise AssertionError(f"studies: K2 device events in one K-tick "
+                                     f"replay at S {S}: {per_chain}, not {K}")
+            chain_ms = twin.median_ms(chain, 1, 5, sync)
+            k2_replayed += chain.replays * K
+            print(f"studies (a): S {S}: push p50 {p50:.3f} ms (RTF "
+                  f"{S * chunk_s / p50 * 1e3:,.0f}x), K2 device events 1 a push; "
+                  f"K2 at R={len(frames)} vs plain: max abs err mfcc "
+                  f"{errs[0]:.3e} logmel {errs[1]:.3e} power {errs[2]:.3e}; "
+                  f"K-tick graph (K {K}, chunks drawn on the card, capture "
+                  f"{chain.capture_s:.2f} s): {chain_ms:.3f} ms a replay, RTF "
+                  f"{K * S * chunk_s / chain_ms * 1e3:,.0f}x, {per_chain} K2 "
+                  f"device events a replay")
+            del chain, frames
+            torch.cuda.empty_cache()
+    finally:
+        taf.k2 = k2
+    k2_eager = wrapper.launches - k2_compared - k2_captured
+    k2_n = k2_eager + k2_replayed
+    print(f"studies (a): K2's wrapper called {wrapper.launches} times: "
+          f"{k2_captured} into captures, {k2_compared} against its plain "
+          f"twin, {k2_eager} eager launches (the graphs' warm-up runs)")
+
+    # (b) the serving cell, both modes.
+    clients, reqs = STUDY_CELL
+    for mode, micro in (("serialized", False), ("micro_batch", True)):
+        service, mcfg = server_load.make_service(micro, False, 2.0, 2, device)
+        dims = (mcfg.audio_dim, mcfg.video_dim, mcfg.text_dim)
+        replies = []
+        try:
+            (cell,) = server_load.serve_cells(service, dims, (clients,), reqs,
+                                              replies, log=lambda line: None)
+        finally:
+            if service.batcher is not None:
+                service.batcher.close()
+        row = server_load.client_row(dims)
+        want = service.engine.predict(*(np.asarray(row[m], np.float32)[None]
+                                        for m in server_load.MODALITIES))
+        if len(replies) != clients * reqs:
+            raise AssertionError(f"studies: {len(replies)} replies")
+        err = max(check_close(f"/predict {mode} {key}", torch.tensor(r[key]),
+                              torch.from_numpy(want[key]).double(), *FEAT_TOL)
+                  for r in replies for key in ("mu", "uncertainty",
+                                               "calibrated_uncertainty",
+                                               "expected_abs_error"))
+        print(f"studies (b): {mode}, {clients} clients × {reqs} requests: p50 "
+              f"{cell['p50_ms']:.3f} ms, p99 {cell['p99_ms']:.3f} ms, "
+              f"{cell['throughput_rps']:.1f} req/s"
+              + (f", {cell['rows_per_dispatch']:.2f} rows a dispatch"
+                 if "rows_per_dispatch" in cell else "")
+              + f"; every reply vs engine.predict within FEAT_TOL (max abs "
+              f"err {err:.3e})")
+        del service
+
+    # (c) the bf16 diagnosis's optimizer stages.
+    after = {}
+    for storage in ("float32", "bfloat16"):
+        line = []
+        for variant in ("adamw", "adamw-f32opt"):
+            torch.manual_seed(SEED)
+            step, m = bf16_diag.build_step(variant, storage, STUDY_BATCH,
+                                           device, 128)
+            call = twin.graphed(step, device)
+            for _ in range(STUDY_STEPS):
+                call()
+            sync()
+            if storage == "float32":
+                after[variant] = {k: v.detach().clone()
+                                  for k, v in m.named_parameters()}
+            ms = twin.median_ms(call, 10, 3, sync)
+            kernels = twin.device_kernels(call, device)
+            line.append(f"{variant} {ms:.3f} ms, {kernels} kernels a replay")
+            del call, step, m
+            torch.cuda.empty_cache()
+        print(f"studies (c): {storage} storage at batch {STUDY_BATCH}: "
+              + "; ".join(line))
+    differ = [k for k, v in after["adamw"].items()
+              if not torch.equal(v, after["adamw-f32opt"][k])]
+    if differ:
+        raise AssertionError(f"studies: adamw-f32opt parts from adamw at "
+                             f"float32 storage in {len(differ)} tensors, "
+                             f"e.g. {differ[:3]}")
+    print(f"studies (c): float32 storage, {3 + STUDY_STEPS} steps from one "
+          f"init and seed: adamw-f32opt equals adamw in every bit "
+          f"({len(after['adamw'])} tensors)")
+    print(f"studies: phase 18 took {time.perf_counter() - t_phase:.1f} s; K1 "
+          f"launched {k1_n}, K2 {k2_n} ({k2_eager} eager through the "
+          f"wrapper, {k2_replayed} in graph replays); card {card_line()}")
+    return k1_n, k2_n
+
+
 def main() -> int:
     import torch
 
@@ -4459,6 +4652,9 @@ def main() -> int:
     phase_memory(torch)
     phase_parallel(torch)
     phase_seq_pipe_expert(torch, k3)
+    k1_n, k2_n = phase_studies(torch, k1, k2, model)
+    record["launches"] += k1_n
+    k2_record["launches"] += k2_n
 
     print(card)
     print(json.dumps({"kernels": [record, k2_record, *k3_records, emb_record,

@@ -1,10 +1,11 @@
-"""The reference's flagship factory with its init jitted, and weights drawn
-for a reference module's init tree, for the port's tests.
+"""Weights drawn for a reference module's init tree, for the port's tests.
 
 `tpu_deer.models.deer_model.create_complete_deer_model` runs flax's init
 eagerly: about a thousand dispatches, ~14 s at the flagship's width on a
-CPU core. The same init under `jax.jit` gives the same parameters bit for
-bit after a compile of ~6 s.
+CPU core; under `jax.jit` the same init still compiles for ~6 s. A check
+that holds the port to the reference on the same weights, whatever their
+values, draws them instead: the tree from `jax.eval_shape` (traced, never
+compiled), the values with numpy.
 """
 
 import jax
@@ -12,17 +13,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from tpu_deer.models.deer_model import CompleteDEERModel, DEERModelConfig
-
-
-def create_complete_deer_model(config=None, seed=42):
-    """(module, params) as the reference's factory returns them."""
-    config = config or DEERModelConfig()
-    model = CompleteDEERModel(config)
-    dummy = tuple(jnp.zeros((2, d)) for d in
-                  (config.audio_dim, config.video_dim, config.text_dim))
-    params = jax.jit(lambda key: model.init(
-        key, *dummy, deterministic=True)["params"])(jax.random.PRNGKey(seed))
-    return model, params
 
 
 def draw_params(module, *args, seed=0, **kwargs):
@@ -48,3 +38,13 @@ def draw_params(module, *args, seed=0, **kwargs):
         return x.astype(leaf.dtype)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def drawn_complete_deer_model(config=None, seed=0):
+    """(module, numpy params) of the reference's flagship with weights from
+    `draw_params`, in place of its factory's init."""
+    config = config or DEERModelConfig()
+    model = CompleteDEERModel(config)
+    dummy = tuple(jnp.zeros((2, d)) for d in
+                  (config.audio_dim, config.video_dim, config.text_dim))
+    return model, draw_params(model, *dummy, seed=seed, deterministic=True)

@@ -87,12 +87,13 @@ MEAN_FRAC = 0.25
 BF16 = torch.bfloat16
 BF16_KW = dict(storage_dtype="bfloat16", grad_accum_steps=2, ema_decay=0.9)
 # The reference's train runs: name → (compute dtype, ensemble?, fields),
-# the slowest compile first.
+# the slowest compile first (on one CPU core: 16, 12, 9 and 9 s, each
+# traced in 3.5-6 s), so the later traces overlap the longer compiles.
 JAX_RUNS = {
+    "bf16_compute": ("bfloat16", False, BF16_KW),
+    "bf16": ("float32", False, BF16_KW),
     "ensemble": ("float32", True, dict(remat=True, storage_dtype="bfloat16")),
     "remat": ("float32", False, dict(remat=True)),
-    "bf16": ("float32", False, BF16_KW),
-    "bf16_compute": ("bfloat16", False, BF16_KW),
 }
 
 

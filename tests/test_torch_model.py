@@ -1,5 +1,6 @@
 """The port's flagship model (tpu_deer_torch.models) against the JAX reference
-on the CPU, with the reference's weights carried over by
+on the CPU, with weights drawn for the reference's parameter tree
+(`_jax_reference.drawn_complete_deer_model`, no init compile) carried over by
 tpu_deer_torch.convert.
 
 Output tolerance rtol 1e-4, atol 1e-5: both sides run float32, but sums are
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_reference import create_complete_deer_model as jax_create
+from _jax_reference import drawn_complete_deer_model as jax_create
 from tpu_deer.core import nig as jnig
 from tpu_deer.models.deer_model import DEERModelConfig as JConfig
 from tpu_deer_torch.convert import flax_to_state_dict, state_dict_to_flax

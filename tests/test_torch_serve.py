@@ -1,5 +1,6 @@
 """The slice as a whole on the CPU: media → features → InferenceEngine.predict,
-port against reference with the reference's weights (tpu_deer_torch.convert).
+port against reference on the same weights (drawn for the reference's
+parameter tree, carried to the port by tpu_deer_torch.convert).
 
 Tolerances: audio features rtol 1e-4, atol 1e-5 (float32 front-end sums in
 another order; the vector is unit-variance, so atol covers entries near 0);
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_reference import create_complete_deer_model as jax_create
+from _jax_reference import drawn_complete_deer_model as jax_create
 from tpu_deer.data.features import MultimodalFeatureExtractor as JExtractor
 from tpu_deer.serve import InferenceEngine as JEngine
 from tpu_deer_torch.convert import flax_to_state_dict

@@ -118,6 +118,35 @@ def _drive(rec, audio, video, text, reset_at=5, idle_at=3):
     return outs, states
 
 
+def test_buckets_called_from_threads_at_once(device):
+    """Two threads predicting at once in different buckets of one engine
+    (its graphs share a memory pool): every output equals the same request
+    predicted alone. A later capture can place its outputs where an earlier
+    graph's intermediates were, so without the pool's lock the other
+    bucket's replay overwrote them before the copy out."""
+    engine = InferenceEngine(_model(device), device=device)
+    engine.warmup()
+    feats = {n: _feats(n, seed=n) for n in (1, 3, 40, 200)}
+    alone = {n: engine.predict(*f) for n, f in feats.items()}
+    errors = []
+
+    def client(sizes):
+        try:
+            for _ in range(25):
+                for n in sizes:
+                    _assert_close(engine.predict(*feats[n]), alone[n])
+        except AssertionError as e:  # raised on the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(sizes,))
+               for sizes in ((1, 40), (3, 200))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[0]
+
+
 def test_graphed_ticks_match_eager(device):
     streams, ticks = 64, 8
     cfg = StreamingConfig()

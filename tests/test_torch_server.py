@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_reference import create_complete_deer_model as jax_create
+from _jax_reference import drawn_complete_deer_model as jax_create
 from tpu_deer import server as jserver
 from tpu_deer import stream as jstream
 from tpu_deer.eval import ood as jood

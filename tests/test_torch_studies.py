@@ -101,4 +101,10 @@ def test_kernel_bench_rows_have_reference_keys():
                "attention": [row], "frames": 64, "signal_shape": [1, 4096],
                "mfcc_frames": kernel_bench.frames_rows(64, 1, CPU),
                "signal": kernel_bench.signal_rows(1, 4096, 1, CPU)}
-    assert "auto picks the faster" in "\n".join(kernel_bench.report(payload))
+    # The verdict follows the row's own timings (on a loaded CPU host the
+    # plain path timed twice can come out slower the second time).
+    slower = any(row[f"auto_{ph}_ms"]
+                 > min(row[f"flash_{ph}_ms"], row[f"plain_{ph}_ms"])
+                 for ph in ("fwd", "bwd"))
+    assert ("auto picks the slower path at" if slower else
+            "auto picks the faster") in "\n".join(kernel_bench.report(payload))

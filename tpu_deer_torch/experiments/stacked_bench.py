@@ -32,21 +32,6 @@ from tpu_deer_torch.experiments import twin
 SEED = 0
 
 
-def _graphed(fn, device):
-    """A CUDA graph of `fn()` (two warm-up runs on a side stream) and its
-    replay."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
-    return graph.replay, out
-
-
 def main(argv=None) -> int:
     p = twin.parser(__doc__, "stacked")
     p.add_argument("--batch", type=int, default=16384)
@@ -98,7 +83,7 @@ def main(argv=None) -> int:
 
         rows["fwd"][f"{key}_eager"] = twin.median_ms(fwd, args.k, args.reps, sync)
         if cuda:
-            replay, _ = _graphed(fwd, device)
+            replay = twin.graphed(fwd, device, warmup=2)
             rows["fwd"][f"{key}_graphed"] = twin.median_ms(replay, args.k,
                                                        args.reps, sync)
         flops[f"fwd_{key}"] = cost_analysis_summary(fwd)["flops"]

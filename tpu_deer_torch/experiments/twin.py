@@ -88,6 +88,74 @@ def median_ms(fn, k: int, reps: int, sync: Callable[[], None]) -> float:
     return float(np.median(runs))
 
 
+def graphed(fn: Callable[[], object], device: torch.device,
+            warmup: int = 3) -> Callable[[], None]:
+    """fn (no host sync inside) as one CUDA graph on the card, replayed by
+    the returned call, after `warmup` eager runs on a side stream (they
+    build the kernels and let autograd settle its buffers); eager on the
+    CPU."""
+    if device.type != "cuda":
+        return fn
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def profiled(fn: Callable[[], None], expect: Optional[dict] = None,
+             windows: int = 3, markers: int = 64):
+    """Run fn under the profiler; returns ([(device event name, ms)], wall
+    ms) of the first of up to `windows` windows that lost none of fn's
+    device events, else None. On the H100 the profiler drops the first
+    device events of a window, more of them the longer the process has
+    run (one more every 5-25 s; now and then all). So each window first
+    runs `markers` empty kernels (torch.cuda._sleep(1), doubled at each
+    retry) and counts only if one of them and, for each name in `expect`,
+    at least its count of fn's device events came through."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(markers):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        kept = sum("spin_kernel" in name for name, _ in events)
+        events = [(name, ms) for name, ms in events if "spin_kernel" not in name]
+        short = {key: n for key, n in (expect or {}).items()
+                 if sum(key in name for name, _ in events) < n}
+        if kept and events and not short:
+            return events, wall_ms
+        print(f"profiler: a window lost {markers - kept} of its {markers} "
+              f"markers" + "".join(f", {key} < {n}" for key, n in short.items()))
+        markers *= 2
+    return None
+
+
+def device_kernels(fn: Callable[[], None], device: torch.device) -> Optional[int]:
+    """Kernels and memory operations one call of fn puts on the card,
+    counted by `profiled`; None on the CPU or when no window kept every
+    event."""
+    if device.type != "cuda":
+        return None
+    got = profiled(fn)
+    return None if got is None else len(got[0])
+
+
 def write(out: str, md: list[str], payload: dict) -> str:
     """Write <out>.md and <out>.json; returns the Markdown."""
     text = "\n".join(md) + "\n"

@@ -8,10 +8,13 @@ through pinned buffers before the call returns. `InferenceEngine` keeps one
 a padded bucket, `ExportedEngine` one a bucket around its program, and
 `StreamingRecognizer` one for its tick.
 
-Threads: a call holds its own lock from the copy in to the copy out, so two
-threads never share one graph's static buffers. Replays go on the calling
-thread's current stream (the device's default stream unless the caller set
-another), so graphs that share a memory pool never run at once. A capture
+Threads: a call holds its graph's lock from the copy in to the copy out, so
+two threads never share one graph's static buffers. `BucketGraphs` holds
+one lock for its memory pool around each call: a later capture may place
+its static outputs in memory an earlier graph frees after its capture, so
+another graph's replay between a replay and its copy out would overwrite
+those outputs. Replays go on the calling thread's current stream (the
+device's default stream unless the caller set another). A capture
 takes the process-wide `CAPTURE_LOCK`; warm-ups capture in the default
 "global" mode, before a server starts its threads, and a capture made while
 other threads may use the card (a server started without warm-up) passes
@@ -130,9 +133,8 @@ class GraphedCall:
 class BucketGraphs:
     """How the serving engines run a padded bucket: with `graphs`, one
     `GraphedCall` a batch size over (audio, video, text) of the given
-    widths, captured on demand into one memory pool that all of them share
-    (their replays go on one stream, so never at once); else the same
-    function eagerly."""
+    widths, captured on demand into one memory pool and under one lock that
+    all of them share; else the same function eagerly."""
 
     def __init__(self, forward: Callable[[int], Callable[..., dict]],
                  widths: Sequence[int], device: torch.device, graphs: bool):
@@ -145,6 +147,7 @@ class BucketGraphs:
         self._graphs: dict[int, GraphedCall] = {}
         self._pool = None
         self._lock = threading.Lock()
+        self._pool_lock = threading.Lock()  # see the module docstring
 
     def get(self, batch: int,
             capture_error_mode: str = "thread_local") -> GraphedCall:
@@ -163,7 +166,9 @@ class BucketGraphs:
     def run(self, audio, video, text) -> dict[str, np.ndarray]:
         """One padded batch, numpy in and out."""
         if self.graphs:
-            return self.get(len(audio))(audio, video, text)
+            graph = self.get(len(audio))
+            with self._pool_lock:
+                return graph(audio, video, text)
         as_t = lambda x: torch.from_numpy(
             np.ascontiguousarray(x, dtype=np.float32)).to(self._device)
         with torch.inference_mode():
