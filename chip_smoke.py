@@ -281,6 +281,25 @@ Builds the port's CUDA kernels from tpu_deer_torch/kernels/csrc with nvcc
               storages, each a CUDA graph of the step: at float32 storage
               the two equal in every bit after the same steps, ms and
               kernels a replay.
+ 19. twins  — the last study twins' paths
+              (`tpu_deer_torch/experiments/{f0_fidelity,spike_study,
+              uncertainty_diag,uncertainty_sweep,nig_calibration_study,
+              run_multimodal_deer}.py`): (a) the 11 F0 cases through K2 (the
+              power of `frame_signal`'s frames) and through K1
+              (`mfcc_from_signal`'s power), one launch a case each, against
+              the plain twins' routes: voicing equal on every frame, f0
+              within F0_RTOL, each case's GPE and VDE equal, the kernels'
+              products within K1_TOL; (b) the spike study's machinery on
+              the headline recipe at 65,536 rows, batch 4,096, float32: a
+              fused epoch (graphed) from a snapshot against the same epoch
+              replayed per step from it (`_train_step`; bits, or the max
+              |Δ| within GRAPH_TOL), and the dissection of a step: the
+              per-module pre-clip gradient norms combine to the step's own
+              gradient norm within SPIKE_NORM_RTOL; (c) `--quick` runs of
+              the uncertainty diagnosis, sweep and calibration twins on the
+              card, each payload's keys those of the reference's committed
+              JSON; (d) `python -m tpu_deer_torch.experiments.
+              run_multimodal_deer --mode test` in a subprocess, rc 0.
 
 The last two lines of stdout are a {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -461,6 +480,12 @@ STUDY_CORR = 0.9999
 STUDY_CELL = (16, 10)
 STUDY_BATCH, STUDY_STEPS = 4096, 3
 SEQ_ENS_MEMBERS = 4
+F0_RTOL = 1e-3  # phase 19(a): f0 of the kernel routes against the plain ones
+SPIKE_ROWS, SPIKE_BATCH = 65_536, 4_096  # phase 19(b), float32
+SPIKE_NORM_RTOL = 1e-5  # per-module pre-clip norms against the step's norm
+QUICK_TWINS = {"uncertainty_diag": "experiments/diag_history/batch7.json",
+               "uncertainty_sweep": "experiments/RESULTS_uncertainty_sweep.json",
+               "nig_calibration_study": "experiments/RESULTS_nig_calibration.json"}
 WORDS = ("i am so happy sad angry calm tired excited this is terrible great "
          "fine leave me alone wonderful awful really not sure why you did "
          "that").split()
@@ -4590,6 +4615,151 @@ def phase_studies(torch, k1, k2, model):
     return k1_n, k2_n
 
 
+def phase_twins(torch, k1, k2):
+    """Phase 19 (see the module docstring); returns (K1 launches, K2
+    launches) of its driven path, the F0 cases' routes (the counts zeroed
+    just before and read just after; the launches that check the kernels
+    against their plain twins come later and are not counted)."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    from tpu_deer_torch.experiments import f0_fidelity, spike_study
+    from tpu_deer_torch.ops import audio_frontend as taf
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE)
+    cfg = taf.AudioFrontendConfig()
+    cases = f0_fidelity.make_cases(cfg.hop_length)
+
+    # (a) F0 through K2 and K1, against the plain twins' routes.
+    k1.mfcc_signal.launches = k2.mfcc_frames.launches = 0
+    routes = {name: {route: f0_fidelity.autocorr_f0(case["signal"], device, route)
+                     for route in ("frames", "signal")}
+              for name, case in cases.items()}
+    torch.cuda.synchronize()
+    k1_n, k2_n = k1.mfcc_signal.launches, k2.mfcc_frames.launches
+    if (k1_n, k2_n) != (len(cases), len(cases)):
+        raise AssertionError(f"twins: K1 launched {k1_n}, K2 {k2_n} over "
+                             f"{len(cases)} F0 cases")
+    errs = [0.0] * 3
+    for name, case in cases.items():
+        x = torch.from_numpy(case["signal"]).to(device)
+        frames = taf.frame_signal(x, cfg).contiguous()
+        bases = taf._device_bases(cfg, device)
+        plain = {"frames": k2.mfcc_frames_plain(frames, bases, cfg.n_fft)[2],
+                 "signal": taf.mfcc_from_signal(x, cfg, plain=True)[2]}
+        got = {"frames": k2.mfcc_frames(frames, bases, cfg.n_fft),
+               "signal": taf.mfcc_from_signal(x, cfg)}
+        for i, route in enumerate(("frames", "signal")):
+            ref_power = plain[route]
+            errs[i] = max(errs[i], check_close(
+                f"{name} {route} power", got[route][2], ref_power,
+                *K1_TOL[2]))
+            f0_ref, v_ref = taf.f0_autocorrelation(ref_power, cfg)
+            f0, voiced = routes[name][route]
+            v_ref, f0_ref = v_ref.cpu().numpy(), f0_ref.cpu().numpy()
+            if not np.array_equal(voiced, v_ref):
+                raise AssertionError(f"twins: {name} via {route}: voicing "
+                                     f"differs on {int((voiced != v_ref).sum())}"
+                                     f" frames from the plain route")
+            rel = np.abs(f0 - f0_ref) / np.maximum(np.abs(f0_ref), 1e-12)
+            errs[2] = max(errs[2], float(rel.max()))
+            if rel.max() > F0_RTOL:
+                raise AssertionError(f"twins: {name} via {route}: f0 "
+                                     f"{rel.max():.3e} relative off the plain "
+                                     f"route's")
+            truth = f0_fidelity.frame_truth(case, cfg.hop_length, len(f0))
+            a, b = (f0_fidelity.score(f, v, *truth) for f, v in
+                    ((f0, voiced), (f0_ref, v_ref)))
+            if (a["gpe"], a["vde"]) != (b["gpe"], b["vde"]):
+                raise AssertionError(f"twins: {name} via {route}: GPE/VDE "
+                                     f"{a['gpe']}/{a['vde']} against "
+                                     f"{b['gpe']}/{b['vde']}")
+    print(f"twins (a): {len(cases)} F0 cases through K2 ({k2_n} launches) and "
+          f"K1 ({k1_n}): voicing equal to the plain routes on every frame, f0 "
+          f"within {errs[2]:.2e} relative, GPE and VDE equal; power vs plain "
+          f"max abs err K2 {errs[0]:.3e}, K1 {errs[1]:.3e}")
+
+    # (b) the spike study's machinery, float32.
+    args = SimpleNamespace(seed=2, n_train=SPIKE_ROWS, batch_size=SPIKE_BATCH)
+    trainer, iters, tcfg = spike_study.build(args, device, "float32")
+    trainer.train_epoch(iters, 0)
+    snapshot = trainer._copy_state()
+    t0 = time.perf_counter()
+    fused = trainer.train_epoch(iters, 1)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    after = {k: v.detach().clone() for k, v in trainer.params.items()}
+    t0 = time.perf_counter()
+    losses, gnorms, rows = spike_study.replay(trainer, iters, 1, snapshot)
+    replay_s = time.perf_counter() - t0
+    differ = [k for k, v in trainer.params.items() if not torch.equal(v, after[k])]
+    err = max((check_close(f"replay {k}", trainer.params[k], after[k], *GRAPH_TOL)
+               for k in differ), default=0.0)
+    if not np.isclose(losses.mean(), fused["loss"], rtol=GRAPH_TOL[0]):
+        raise AssertionError(f"twins: replayed epoch loss {losses.mean()} "
+                             f"against the fused epoch's {fused['loss']}")
+    bad = spike_study.bad_steps(losses, gnorms)
+    trainer.load_state_dict(snapshot)
+    batch = trainer._batch_from_indices(iters["synthetic"].dataset, rows[0])
+    record, step_norm = spike_study.dissect(trainer, batch, 0, tcfg.gradient_clip)
+    total = record["grad_norm_preclip_total"]
+    if abs(total - step_norm) > SPIKE_NORM_RTOL * step_norm:
+        raise AssertionError(f"twins: per-module pre-clip norms combine to "
+                             f"{total}, the step's grad_norm is {step_norm}")
+    print(f"twins (b): the epoch of {len(rows)} steps at {SPIKE_ROWS:,} rows: "
+          f"fused (graphed) {fused_s:.2f} s, replayed per step "
+          f"{replay_s:.2f} s; parameters "
+          + ("equal in every bit" if not differ else
+             f"differ in {len(differ)} tensors, max abs err {err:.3e} "
+             f"(within GRAPH_TOL)")
+          + f"; {len(bad)} bad steps; the dissected step: module norms combine "
+          f"to {total:.6f} against the step's {step_norm:.6f}, modules "
+          f"{sorted(record['grad_module_norms'])}")
+    del trainer, iters, snapshot, after
+    torch.cuda.empty_cache()
+
+    # (c) the uncertainty twins' quick runs on the card.
+    with tempfile.TemporaryDirectory(prefix="twins_") as out:
+        for name, ref_path in QUICK_TWINS.items():
+            module = importlib.import_module(f"tpu_deer_torch.experiments.{name}")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # its Markdown
+                rc = module.main(["--quick", "--platform", device.type,
+                                  "--out", os.path.join(out, name)])
+            with open(os.path.join(out, name + ".json")) as f:
+                got = json.load(f)
+            with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   ref_path)) as f:
+                ref = json.load(f)
+            if rc != 0 or set(got) != set(ref) or any(
+                    set(r) != set(ref["runs"][0]) for r in got["runs"]):
+                raise AssertionError(f"twins: {name} --quick rc {rc}, keys "
+                                     f"{sorted(got)} / {sorted(got['runs'][0])}")
+            print(f"twins (c): {name} --quick on the card in "
+                  f"{time.perf_counter() - t0:.1f} s, {len(got['runs'])} runs, "
+                  f"the reference's keys; platform {got['platform']}")
+
+    # (d) the CLI shim in a subprocess.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_deer_torch.experiments.run_multimodal_deer",
+         "--mode", "test", *(["--platform", "cpu"] if device.type == "cpu"
+                             else [])], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"twins: run_multimodal_deer --mode test rc "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"twins (d): run_multimodal_deer --mode test rc 0 in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + "; ".join(line.strip() for line in proc.stdout.splitlines()[-3:]))
+    print(f"twins: phase 19 took {time.perf_counter() - t_phase:.1f} s; K1 "
+          f"launched {k1_n}, K2 {k2_n}; card {card_line()}")
+    return k1_n, k2_n
+
+
 def main() -> int:
     import torch
 
@@ -4653,6 +4823,9 @@ def main() -> int:
     phase_parallel(torch)
     phase_seq_pipe_expert(torch, k3)
     k1_n, k2_n = phase_studies(torch, k1, k2, model)
+    record["launches"] += k1_n
+    k2_record["launches"] += k2_n
+    k1_n, k2_n = phase_twins(torch, k1, k2)
     record["launches"] += k1_n
     k2_record["launches"] += k2_n
 

@@ -8,6 +8,8 @@ values, draws them instead: the tree from `jax.eval_shape` (traced, never
 compiled), the values with numpy.
 """
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,17 @@ def draw_params(module, *args, seed=0, **kwargs):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+class Deterministic:
+    """The reference's model with every dropout off, train step included."""
+
+    def __init__(self, model):
+        self._model = model
+        self.config = model.config
+
+    def apply(self, variables, *args, deterministic=True, rngs=None, **kw):
+        return self._model.apply(variables, *args, deterministic=True, **kw)
+
+
 def drawn_complete_deer_model(config=None, seed=0):
     """(module, numpy params) of the reference's flagship with weights from
     `draw_params`, in place of its factory's init."""
@@ -48,3 +61,28 @@ def drawn_complete_deer_model(config=None, seed=0):
     dummy = tuple(jnp.zeros((2, d)) for d in
                   (config.audio_dim, config.video_dim, config.text_dim))
     return model, draw_params(model, *dummy, seed=seed, deterministic=True)
+
+
+class SharedEvalStep:
+    """One jitted eval step for several reference trainers of one model and
+    loss variant: `share(trainer)` points the trainer's `_eval_step` at the
+    first shared trainer's, so their one program compiles once. Calls hold
+    a lock: two threads that both missed the cache would each compile."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._step = None
+        self._key = None
+
+    def share(self, trainer):
+        key = (trainer.model.config, trainer.config.loss_variant)
+        with self._lock:
+            if self._step is None:
+                self._step, self._key = trainer._eval_step, key
+            assert key == self._key, (key, self._key)
+        trainer._eval_step = self._call
+        return trainer
+
+    def _call(self, *args, **kwargs):
+        with self._lock:
+            return self._step(*args, **kwargs)

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_reference import draw_params
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
@@ -132,8 +133,10 @@ def _f32(rng, *shape, scale=1.0):
 @functools.lru_cache(maxsize=None)
 def _par_inputs():
     """The inputs of the ring, GPipe, MoE, ensemble and dry-run checks
-    (numpy from seeds; the dry run's and the ensemble's inits are the
-    reference's seed-0 init, converted, and the port's seed-0 stack)."""
+    (numpy from seeds; the dry run's init is drawn for the reference's
+    flagship tree (`_jax_reference.draw_params`: its tree from
+    `jax.eval_shape`, no init compile) and converted, the ensemble's is the
+    port's seed-0 stack)."""
     rng = np.random.default_rng(11)
     b, h, t, d = (RING[k] for k in "bhtd")
     ring = {x: _f32(rng, b, h, t, d) for x in "qkvw"}
@@ -147,11 +150,9 @@ def _par_inputs():
     moe = MoEFusion(*MOE["args"], **MOE["kwargs"])
     init_flax_style_(moe, torch.Generator().manual_seed(5))
     mods = [_f32(rng, 8, dim) for dim in MOE["args"][0]]
-    # The reference's create_complete_deer_model(seed=0), its init jitted;
-    # the ensemble's stack is the port's seed-0 one.
     dummy = [jnp.zeros((2, 16))] * 3
-    jparams = jax.jit(lambda key: JModel(JConfig(**DRY_MODEL)).init(
-        key, *dummy, deterministic=True)["params"])(jax.random.PRNGKey(0))
+    jparams = draw_params(JModel(JConfig(**DRY_MODEL)), *dummy, seed=0,
+                          deterministic=True)
     _, stack = create_deer_ensemble(DEERModelConfig(**DRY_MODEL), n_members=2,
                                     seed=0, device="cpu")
     tcfg = training_config(DRY_WORLD)
@@ -163,8 +164,7 @@ def _par_inputs():
         "moe": {**MOE, "init": {k: v.detach().clone()
                                 for k, v in moe.state_dict().items()},
                 "mods": mods},
-        "dryrun_init": flax_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, jparams)),
+        "dryrun_init": flax_to_state_dict(jparams),
         "ensemble": {"model": DRY_MODEL,
                      "init": stack,
                      "training": {"batch_size": tcfg.batch_size,
@@ -341,9 +341,9 @@ def _jax_ensemble_steps():
     dropout off, with the dry run's configuration and batch: two steps from
     the converted stack ((losses, grad norms, stacked params)), and the
     first step's loss from a stack of two copies of the dry run's init
-    (the reference's seed-0 flagship): the member mean of two equal losses,
-    the dry run's single-model loss (its dp × tp and fsdp steps compute the
-    same function), from the same compiled step."""
+    (weights drawn for the reference's flagship tree): the member mean of
+    two equal losses, the dry run's single-model loss (its dp × tp and
+    fsdp steps compute the same function), from the same compiled step."""
     par = _par_inputs()
     ens = par["ensemble"]
     jm = JModel(JConfig(**ens["model"]))
@@ -826,8 +826,9 @@ def test_ensemble_mesh_steps_match(world4, case):
 
 
 def test_dryrun_twin_at_world4(world4):
-    """`dryrun_multichip(4)` from the reference's seed-0 inits (converted),
-    dropout off: its line has every key of the reference's record
+    """`dryrun_multichip(4)` from weights drawn for the reference's
+    flagship tree (converted) and the port's seed-0 stack, dropout off:
+    its line has every key of the reference's record
     (MULTICHIP_r05.json), the ring, GPipe and MoE diffs are below 1e-4, the
     checkpoints round-trip to step 2, and the losses equal the reference's
     steps on the same 2 × 2 mesh (rtol 1e-5). The fsdp count is the

@@ -158,9 +158,9 @@ def _make_split(cfg: SyntheticConfig, n: int, rng: np.random.Generator) -> dict:
         # share the same decision rule.
         w_h = proj_rng.standard_normal(cfg.audio_dim) / np.sqrt(cfg.audio_dim)
         hard_score = audio @ w_h
-        from scipy.stats import norm
+        from scipy.special import ndtri  # scipy.stats.norm.ppf's own function
 
-        thresh = norm.ppf(1.0 - cfg.hard_fraction)
+        thresh = ndtri(1.0 - cfg.hard_fraction)
         is_hard = hard_score > thresh
     else:
         is_hard = rng.random(n) < cfg.hard_fraction
@@ -218,9 +218,9 @@ def _make_split_v2(
         # quantile threshold (observed: ||w_h|| = 0.10 -> zero hard samples).
         w_h /= np.linalg.norm(w_h)
         hard_score = z[:, core] @ w_h
-        from scipy.stats import norm
+        from scipy.special import ndtri  # scipy.stats.norm.ppf's own function
 
-        is_hard = hard_score > norm.ppf(1.0 - cfg.hard_fraction)
+        is_hard = hard_score > ndtri(1.0 - cfg.hard_fraction)
     else:
         is_hard = np.zeros(n, dtype=bool)
     noise_scale = np.where(is_hard, cfg.hard_noise, cfg.label_noise)

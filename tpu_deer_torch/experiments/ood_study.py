@@ -108,8 +108,6 @@ def main(argv=None) -> int:
     if args.quick:
         args.n_train, args.n_eval, args.epochs = 2048, 1024, 4
 
-    import torch
-
     from tpu_deer_torch.data.pipeline import ArrayDataset
     from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
     from tpu_deer_torch.experiments.ensemble_study import make_probes
@@ -119,8 +117,7 @@ def main(argv=None) -> int:
     )
     from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
 
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    dtype = twin.compute_dtype(device)
     splits = make_synthetic_splits(SyntheticConfig(
         n_train=args.n_train, n_val=args.n_eval, n_test=args.n_eval,
         latent_dim=args.latent_dim or None))

@@ -117,8 +117,6 @@ def main(argv=None) -> int:
         args.n_seeds = min(args.n_seeds, 2)
         args.n_train, args.epochs, args.batch_size = 2048, 4, 256
 
-    import torch
-
     from tpu_deer_torch.data.pipeline import ArrayDataset
     from tpu_deer_torch.data.synthetic import SyntheticConfig, make_synthetic_splits
     from tpu_deer_torch.eval.ablation import _mask_modalities
@@ -128,8 +126,7 @@ def main(argv=None) -> int:
     )
     from tpu_deer_torch.train.trainer import DEERTrainer, TrainingConfig
 
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    dtype = twin.compute_dtype(device)
     mcfg = DEERModelConfig(dropout=0.05, compute_dtype=dtype)
     tcfg = TrainingConfig(
         learning_rate=args.lr, batch_size=args.batch_size,

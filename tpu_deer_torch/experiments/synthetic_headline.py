@@ -136,6 +136,7 @@ def main(argv=None) -> int:
     from tpu_deer_torch.eval.comprehensive import ComprehensiveEvaluator
     from tpu_deer_torch.eval.evaluator import DEERModelEvaluator
     from tpu_deer_torch.eval.uncertainty import UncertaintyAnalyzer
+    from tpu_deer_torch.experiments import twin
     from tpu_deer_torch.models.deer_model import (
         DEERModelConfig,
         count_parameters,
@@ -148,7 +149,6 @@ def main(argv=None) -> int:
     device = resolve_device(args.platform)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     platform = card_name(device)
 
     splits = make_synthetic_splits(SyntheticConfig(
@@ -156,7 +156,7 @@ def main(argv=None) -> int:
         seed=42 + args.seed))
     train_ds, val_ds, test_ds = (ArrayDataset(splits[s], "synthetic")
                                  for s in ("train", "val", "test"))
-    compute_dtype = "bfloat16" if device.type == "cuda" else "float32"
+    compute_dtype = twin.compute_dtype(device)
     model = create_complete_deer_model(
         DEERModelConfig(dropout=args.dropout, compute_dtype=compute_dtype),
         seed=args.seed, device=device)

@@ -4,7 +4,8 @@ this run's.
 
 Every twin runs with TF32 off on the card (`--platform cuda`, the default,
 raising without one) or on the CPU (`--platform cpu`), in float32 unless
-its reference computes in bf16 (the HBM and scale studies), writes
+its reference computes in bf16 on its TPU (the HBM and scale studies, and
+the trained studies through `compute_dtype`: bf16 on the card), writes
 `results_torch/RESULTS_<name>_h100.{json,md}` (`--quick`: `..._quick`,
 git-ignored), and compares its quality with the reference's committed
 `experiments/RESULTS_<name>.json`: a CCC gap beyond `CCC_GAP` is flagged in
@@ -47,6 +48,14 @@ def setup(args, name: str) -> tuple[torch.device, str]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device, card_name(device)
+
+
+def compute_dtype(device: torch.device) -> str:
+    """The compute dtype of the twins whose reference computes in bf16 on
+    its TPU: "bfloat16" on the card, with bf16 products reduced in float32
+    (reduced-precision reductions off), "float32" on the CPU."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return "bfloat16" if device.type == "cuda" else "float32"
 
 
 def reference(name: str) -> Optional[dict]:
